@@ -1,0 +1,126 @@
+"""Builds and loads the port's Hopper kernels (``csrc/*.cu``).
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface (``buildlib.build_shared``) and
+loaded with ctypes.  Nothing here runs at import time: the CPU tests
+import every module on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import threading
+
+import torch
+
+from nsparse_tpu_torch.buildlib import PKG_DIR, build_shared
+
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_SIGNATURES = {
+    "nsp_gather": [_P, _I64, _P, _P, _I64, _P],
+    "nsp_expand": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    "nsp_fused_class": [
+        _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+        ctypes.POINTER(_I32), _P, _I64, _P,
+    ],
+    "nsp_runcopy": [_P, _P, _P, _P, _I64, _P, _I64, _P],
+}
+
+
+def nvcc() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+class _KernelLib:
+    """The loaded kernel library, built once per process."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib = None
+
+    def get(self):
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._load()
+            return self._lib
+
+    @staticmethod
+    def _load():
+        srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
+        lib = build_shared(
+            "libnsparse_kernels", srcs, [nvcc(), *NVCC_FLAGS], timeout=900
+        )
+        for name, argtypes in _SIGNATURES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        lib.nsp_error_string.argtypes = [ctypes.c_int]
+        lib.nsp_error_string.restype = ctypes.c_char_p
+        lib.nsp_max_smem_optin.argtypes = [ctypes.POINTER(_I32)]
+        lib.nsp_max_smem_optin.restype = ctypes.c_int
+        return lib
+
+
+KERNELS = _KernelLib()
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point ``name`` for values of ``dtype``."""
+    if dtype == torch.float32:
+        suffix = "_f32"
+    elif dtype == torch.float64:
+        suffix = "_f64"
+    else:
+        raise TypeError(f"{name}: values must be float32 or float64, got {dtype}")
+    return getattr(KERNELS.get(), name + suffix)
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = KERNELS.get().nsp_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def max_smem_optin(device_index: int) -> int:
+    """Dynamic shared memory a block may opt in to on a device (queried
+    once per device)."""
+    n = _I32(0)
+    with torch.cuda.device(device_index):
+        rc = KERNELS.get().nsp_max_smem_optin(ctypes.byref(n))
+    check(rc, "smem query")
+    return int(n.value)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_cuda(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous CUDA tensors on one device, int32 indices."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: all tensors must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+        if not t.is_floating_point() and t.dtype != torch.int32:
+            raise ValueError(f"{what}: index arrays must be int32")

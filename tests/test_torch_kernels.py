@@ -1,0 +1,198 @@
+"""The port's kernel modules against their JAX counterparts.
+
+For each module that holds a kernel, the same numpy inputs go through the
+JAX function (eager, in the index/reference form it takes off the TPU) and
+through the port's wrapper on CPU tensors, which runs the kernel's plain
+PyTorch version.  Data movement and expansion must match exactly; folds
+at rtol 1e-12 (f64) and 1e-6 (f32) — no difference is expected, the bound
+only leaves room for XLA CPU fusion.  The CUDA kernels themselves are held
+against the same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+import nsparse_tpu.ops.spgemm_window as jwin
+from nsparse_tpu.formats.csr import CSR as JCSR
+from nsparse_tpu.io.generate import rmat_csr as jrmat
+from nsparse_tpu.ops.kernels import shuffle_pallas as jsh
+from nsparse_tpu.ops.kernels.piecewise import piecewise_expand as j_expand
+from nsparse_tpu.ops.kernels.runcopy import runcopy as j_runcopy
+from nsparse_tpu.ops.kernels.window_fused import fused_class_apply as j_fused
+from nsparse_tpu.ops.spgemm import slab_class_reduce as j_slab_reduce
+from nsparse_tpu.ops.spgemm import spgemm_plan as j_plan
+
+import nsparse_tpu_torch as nt
+import nsparse_tpu_torch.tune.kernelgen as tkg
+from nsparse_tpu_torch.ops.kernels import piecewise, runcopy, shuffle, window_fused
+from nsparse_tpu_torch.ops.spgemm import slab_class_reduce
+
+DTYPES = [np.float32, np.float64]
+FOLD_RTOL = {np.float32: 1e-6, np.float64: 1e-12}
+
+
+@pytest.fixture(scope="module")
+def plans():
+    """JAX and port window plans of R-MAT-8 (deep tiers, several classes)."""
+    ja = jrmat(8, edge_factor=8, dtype=np.float64, seed=2)
+    ta = nt.rmat_csr(8, edge_factor=8, dtype=np.float64, seed=2)
+    return ja, ta, j_plan(ja, ja, shuffle=True, layout="window"), \
+        nt.spgemm_plan(ta, ta)
+
+
+def _vals(n, dtype, seed):
+    return np.random.default_rng(seed).standard_normal(n).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_planned_shuffle(dtype):
+    src = np.random.default_rng(0).permutation(5000).astype(np.int32)
+    x = _vals(5000, dtype, 1)
+    want = np.asarray(jsh.planned_shuffle(jsh.build_shuffle_plan(src),
+                                          jnp.asarray(x)))
+    got = shuffle.planned_shuffle(shuffle.build_shuffle_plan(src),
+                                  torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_tile_permutation(dtype):
+    """The per-tile permutation, which K3 reads its products through: a
+    fused class with no folds, no tiers and identity extraction and entry
+    tables moves each tile exactly as the JAX tile_benes_apply does."""
+    rng = np.random.default_rng(2)
+    w = 256
+    perms = np.concatenate([rng.permutation(w) for _ in range(8)])
+    x = _vals(8 * w, dtype, 3)
+    want = np.asarray(jsh.tile_benes_apply(jsh.build_tile_benes(perms, w),
+                                           jnp.asarray(x)))
+    ident = np.tile(np.arange(w), 8)
+    plan = window_fused.build_fused_plan(w, 8 * w, 0, (), perms, [], ident,
+                                         ident)
+    got = window_fused.fused_class_apply(plan, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_zero_fills_outside_source():
+    plan = shuffle.build_shuffle_plan(np.array([2, 5, 0, 9]), n_src=4)
+    got = shuffle.planned_shuffle(plan, torch.tensor([1.0, 2.0, 3.0, 4.0]))
+    np.testing.assert_array_equal(got.numpy(), [3.0, 0.0, 1.0, 0.0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_expand_matches_jax(plans, dtype):
+    ja, ta, jp, tp = plans
+    a = _vals(ta.nnz, dtype, 4)
+    b = _vals(ta.nnz, dtype, 5)
+    want = np.asarray(j_expand(jp.pw, jnp.asarray(a), jnp.asarray(b)))
+    got = piecewise.piecewise_expand(
+        tp.win.expand, torch.from_numpy(a), torch.from_numpy(b)
+    ).numpy()
+    n = tp.win.expand.n
+    np.testing.assert_array_equal(got, want[:n])
+    assert not want[n:].any()  # the JAX arena's tail pad holds zeros
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_class_matches_jax(plans, dtype):
+    """K3 against the JAX v1 pair it replaces: the class's tile
+    permutation, then the fused reduction."""
+    _, _, jp, tp = plans
+    assert any(f.tier_vs for f in tp.win.fused)  # tiers exercised
+    for ci, (jb, jf, tf) in enumerate(zip(jp.win.benes, jp.win.fused,
+                                          tp.win.fused)):
+        x = _vals(tf.slots, dtype, 10 + ci)
+        want = np.asarray(j_fused(jf, jsh.tile_benes_apply(jb, jnp.asarray(x))))
+        got = window_fused.fused_class_apply(tf, torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, want, rtol=FOLD_RTOL[dtype], atol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_runcopy_matches_jax(plans, dtype):
+    _, _, jp, tp = plans
+    src = _vals(tp.win.merge.n_src, dtype, 6)
+    want = np.asarray(j_runcopy(jp.win.merge, jnp.asarray(src)))
+    got = runcopy.runcopy(tp.win.merge, torch.from_numpy(src)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slab_class_reduce_matches_jax(monkeypatch, dtype):
+    """The fallback pool's class reduction (plain ops on both sides), on a
+    plan whose heavy row outgrows a window ladder capped at 2048 slots; a
+    dense row and column make entry (7, 7) longer than one 512-product
+    chunk, so the reduction runs two slab levels."""
+    monkeypatch.setattr(jwin, "N_WIN_CLASSES", 2)
+    monkeypatch.setattr(tkg, "N_WIN_CLASSES", 2)
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(11)
+    m = 600
+    s = sp.random(m, m, density=0.005, random_state=5, format="lil")
+    s[7, :] = rng.standard_normal(m)
+    s[:, 7] = rng.standard_normal((m, 1))
+    s = sp.csr_matrix(s)
+    jp = j_plan(JCSR.from_scipy(s), JCSR.from_scipy(s), shuffle=True,
+                layout="window")
+    tw = nt.spgemm_plan(nt.CSR.from_scipy(s), nt.CSR.from_scipy(s)).win
+    assert tw.fb_shuffle is not None and tw.fb_lvl_idx  # two slab levels
+    x = _vals(tw.fb_shuffle.n, dtype, 7)
+    want = np.asarray(j_slab_reduce(jnp.asarray(x), jp.win.fb_levels,
+                                    jp.win.fb_lvl_idx))
+    got = slab_class_reduce(torch.from_numpy(x), tw.fb_levels,
+                            tw.fb_lvl_idx).numpy()
+    np.testing.assert_allclose(got, want, rtol=FOLD_RTOL[dtype], atol=0)
+
+
+def test_wrappers_raise_off_cpu_without_cuda(plans):
+    """A wrapper takes its plain version only for CPU tensors; any other
+    device must launch the kernel or raise — never fall back."""
+    _, ta, _, tp = plans
+    w = tp.win.to("meta")
+    a = ta.val.to("meta")
+    calls = [
+        lambda: shuffle.gather(a, w.fused[0].tile_idx),
+        lambda: piecewise.piecewise_expand(w.expand, a, a),
+        lambda: window_fused.fused_class_apply(
+            w.fused[0], torch.zeros(w.fused[0].slots, device="meta")),
+        lambda: runcopy.runcopy(
+            w.merge, torch.zeros(w.merge.n_src, device="meta")),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="must be on"):
+            call()
+    assert (shuffle.gather.launches, piecewise.piecewise_expand.launches,
+            window_fused.fused_class_apply.launches,
+            runcopy.runcopy.launches) == (0, 0, 0, 0)
+
+
+def test_plan_guards_reject_bad_tables():
+    with pytest.raises(ValueError, match="ascending"):
+        runcopy.build_runcopy_plan([0, 0], [4, 4], 16, dst=[0, 2])
+    with pytest.raises(ValueError, match="outside"):
+        runcopy.build_runcopy_plan([14], [4], 16, dst=[0])
+    with pytest.raises(ValueError, match="past b.val"):
+        piecewise.build_expand_plan([0, 8], [0, 6], [8, 4], [0, 1], 16,
+                                    nnz_a=2, nnz_b=9)
+    with pytest.raises(ValueError, match="ascending"):
+        piecewise.build_expand_plan([0, 8, 8], [0, 0, 0], [1, 1, 1],
+                                    [0, 1, 2], 16, nnz_a=3, nnz_b=9)
+    ok = dict(w=4, slots=8, lv=0, tier_vs=(), tier_idx=[])
+    with pytest.raises(ValueError, match="window-local"):
+        window_fused.build_fused_plan(
+            **ok, tile_idx=np.array([0, 1, 2, 4] * 2), ext_idx=np.full(8, -1),
+            entry_idx=np.zeros(8),
+        )
+    with pytest.raises(ValueError, match="window-local"):
+        window_fused.build_fused_plan(
+            **ok, tile_idx=np.zeros(8), ext_idx=np.full(8, -1),
+            entry_idx=np.array([0, 1, 2, 7] * 2),
+        )
+    with pytest.raises(ValueError, match="window-local"):
+        window_fused.build_fused_plan(
+            **ok, tile_idx=np.zeros(8), ext_idx=np.array([0, 1, 2, 4] * 2),
+            entry_idx=np.zeros(8),
+        )
