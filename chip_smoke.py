@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SpGEMM main path once on one CUDA card.
+"""Drive the PyTorch port's SpGEMM and SpMV paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi) and the toolchain;
-  2. build the four Hopper kernels from ``nsparse_tpu_torch/csrc``;
-  3. the main path at its headline size: C = A @ A on R-MAT-14 (edge
-     factor 8, seed 1, float32) — ``spgemm_plan`` on the host, then
-     ``spgemm_numeric`` on cuda:0 with every launch count set to 0 just
-     before and read just after; C is checked against the scipy oracle
-     with the |A||B| bound, then re-run with new values on the same plan,
-     in float32 and in float64;
-  4. each kernel against its plain PyTorch version on the card, on the
-     inputs the main path gives it, and both timed with CUDA events;
-  5. the numeric phase timed with the kernels and with the plain versions;
-  6. the numeric phase under torch.profiler: device busy time per call
-     against the wall, device operations per call, and each device
-     kernel's share of the device time.
-The second-to-last line is the kernel table as JSON; the last line is
+  2. build the eight Hopper kernels from ``nsparse_tpu_torch/csrc``;
+  3. SpGEMM: C = A @ A on R-MAT-14 (edge factor 8, seed 1, float32) —
+     ``spgemm_plan`` on the host, then ``spgemm_numeric`` on cuda:0; C is
+     checked against the scipy oracle with the |A||B| bound, then re-run
+     with new values on the same plan, in float32 and in float64; the
+     numeric phase timed with the kernels and with the plain versions,
+     and under torch.profiler;
+  4. SpMV, float32 unless marked, each path checked against scipy (rtol
+     1e-5, or 1e-8 in float64, scaled by |A||x|):
+       irregular  R-MAT-20 (edge factor 16, seed 2), ELL (min_width 2,
+                  max_slabs 10, sigma 1024) with and without x-shuffle;
+       banded     5-point stencil 2048 x 2048: DIA, and ELL with sigma 0;
+       FEM        16-dof blocks on 4096 nodes: BSR (128, 128); then, with
+                  TF32 allowed, ``spmm`` and the plain BSR SpMV against
+                  K8 (they must stay full float32);
+       f64        DIA and x-shuffle ELL again in float64;
+       tuner      ``autotune_spmv`` in model mode on the stencil;
+     the x-shuffle ELL SpMV under torch.profiler;
+  5. each kernel against its plain PyTorch version on the card, on the
+     inputs its paths gave it, timed with CUDA events beside the plain
+     version, one PyTorch call that computes the same function (where
+     there is one) and the least time the card could take (its bound).
+Every path sets the launch counts to 0 just before it runs and reads them
+just after, and fails if a kernel of that path never launched.  The
+second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -33,18 +46,34 @@ SCALE, EDGE_FACTOR, SEED = 14, 8, 1
 # structural counts of the headline product (device independent)
 N_PRODUCTS, NNZ_C = 17_075_504, 8_935_048
 TRIALS = 20
+RMAT_SCALE, RMAT_EF, RMAT_SEED = 20, 16, 2
+STENCIL = 2048
+FEM = dict(n_nodes=4096, dof=16, neighbors=6, bandwidth=24, seed=3)
+# peak rates outside the tensor cores (NVIDIA H100 SXM data sheet), for
+# the operation bound of the two SpMV kernels
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
+# name: (route, source, the TPU kernel it replaces)
 KERNELS = {
-    # NumericOps field: (name, route, source, the TPU kernel it replaces)
-    "expand": ("expand", "cuda", "nsparse_tpu_torch/csrc/expand.cu",
-               "nsparse_tpu/ops/kernels/piecewise.py:492"),
-    "gather": ("gather", "cuda", "nsparse_tpu_torch/csrc/gather.cu",
+    "gather": ("cuda", "nsparse_tpu_torch/csrc/gather.cu",
                "nsparse_tpu/ops/kernels/shuffle_pallas.py:399"),
-    "fused": ("fused_class", "cuda", "nsparse_tpu_torch/csrc/fused_class.cu",
-              "nsparse_tpu/ops/kernels/window_fused.py:463"),
-    "runcopy": ("runcopy", "cuda", "nsparse_tpu_torch/csrc/runcopy.cu",
+    "expand": ("cuda", "nsparse_tpu_torch/csrc/expand.cu",
+               "nsparse_tpu/ops/kernels/piecewise.py:492"),
+    "fused_class": ("cuda", "nsparse_tpu_torch/csrc/fused_class.cu",
+                    "nsparse_tpu/ops/kernels/window_fused.py:463"),
+    "runcopy": ("cuda", "nsparse_tpu_torch/csrc/runcopy.cu",
                 "nsparse_tpu/ops/kernels/runcopy.py:1035"),
+    "gather_subset": ("cuda", "nsparse_tpu_torch/csrc/gather_subset.cu",
+                      "nsparse_tpu/ops/kernels/gather_pallas.py:233"),
+    "scatter_tiles": ("cuda", "nsparse_tpu_torch/csrc/scatter_tiles.cu",
+                      "nsparse_tpu/ops/kernels/gather_pallas.py:356"),
+    "spmv_dia": ("cuda", "nsparse_tpu_torch/csrc/spmv_dia.cu",
+                 "nsparse_tpu/ops/kernels/dia_pallas.py:60"),
+    "spmv_bsr": ("cuda", "nsparse_tpu_torch/csrc/spmv_bsr.cu",
+                 "nsparse_tpu/ops/kernels/spmv_pallas.py:70"),
 }
+SPGEMM_FIELDS = {"gather": "gather", "expand": "expand",
+                 "fused": "fused_class", "runcopy": "runcopy"}
 
 
 def fail(msg: str) -> None:
@@ -61,23 +90,6 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def record_calls(plan, a, numeric, kernel_ops):
-    """Run the window numeric phase ``numeric`` once through recording
-    wrappers of ``kernel_ops``; returns {field: [args of each call]} —
-    every kernel call of the main path with the inputs it gives it."""
-    ops_type = type(kernel_ops)
-    calls = {f: [] for f in ops_type._fields}
-
-    def recorder(field):
-        def call(*args):
-            calls[field].append(args)
-            return getattr(kernel_ops, field)(*args)
-        return call
-
-    numeric(plan, a, a, ops=ops_type(*map(recorder, ops_type._fields)))
-    return calls
-
-
 def short_name(kernel: str) -> str:
     """A device kernel's name without its argument list, cut to 90
     characters (the template arguments name the elementwise op)."""
@@ -92,7 +104,7 @@ def short_name(kernel: str) -> str:
     return name[:90].rstrip()
 
 
-def profile_numeric(torch, fn, calls: int = 10) -> None:
+def profile_calls(torch, fn, what: str, calls: int = 10) -> None:
     """Print where the device time of ``calls`` runs of ``fn`` goes, as
     torch.profiler records it (the wall clock includes the profiler's own
     host cost)."""
@@ -113,12 +125,12 @@ def profile_numeric(torch, fn, calls: int = 10) -> None:
             us, n = by_name.get(short_name(e.name), (0.0, 0))
             by_name[short_name(e.name)] = (us + e.time_range.elapsed_us(), n + 1)
     if not by_name:
-        print("profile: torch.profiler recorded no device events "
+        print(f"profile {what}: torch.profiler recorded no device events "
               "(device breakdown not measured)")
         return
     busy_ms = sum(us for us, _ in by_name.values()) / calls / 1e3
     n_ops = sum(n for _, n in by_name.values()) / calls
-    print(f"profile ({calls} numeric calls, profiler on): device busy "
+    print(f"profile ({calls} {what} calls, profiler on): device busy "
           f"{busy_ms:.4f} ms per call of {wall_ms:.4f} ms wall "
           f"({100 * busy_ms / wall_ms:.1f}%), {n_ops:g} device ops per call")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
@@ -126,34 +138,385 @@ def profile_numeric(torch, fn, calls: int = 10) -> None:
               f"{us / calls / 1e3:.4f} ms  {n / calls:g}/call  {name}")
 
 
-def main() -> None:
-    try:
-        import torch
-    except ImportError as e:
-        fail(f"torch is not importable: {e}")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs a card")
-    try:
+class Smoke:
+    """The run's state: the card, the kernel modules, the calls each
+    kernel received on the main paths and their launch counts."""
+
+    def __init__(self, torch, card: str):
         import nsparse_tpu_torch as nt
         from nsparse_tpu_torch.ops.kernels import (
-            cuda_lib, piecewise, runcopy, shuffle, window_fused)
-        from nsparse_tpu_torch.ops.spgemm_window import (
-            KERNEL_OPS, PLAIN_OPS, spgemm_numeric_window)
+            cuda_lib, dia, flat_gather, gather_tiles, piecewise, runcopy,
+            shuffle, spmv_bsr, window_fused)
+        from nsparse_tpu_torch.utils.roofline import chip_specs
         from nsparse_tpu_torch.utils.timing import time_cuda
-    except ImportError as e:
-        fail(f"the port is not importable (run from the repository root): {e}")
 
-    card = card_line()
-    print(card)
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name}  torch {torch.__version__}  cuda "
-          f"{torch.version.cuda}  python {sys.version.split()[0]}")
-    dev = torch.device("cuda:0")
+        self.torch, self.nt, self.card = torch, nt, card
+        self.cuda_lib, self.time_cuda = cuda_lib, time_cuda
+        self.dev = torch.device("cuda:0")
+        self.name = torch.cuda.get_device_name(0)
+        self.bw = chip_specs(self.name).hbm_gbps * 1e9
+        self.wrappers = {
+            "gather": shuffle.gather, "expand": piecewise.piecewise_expand,
+            "fused_class": window_fused.fused_class_apply,
+            "runcopy": runcopy.runcopy,
+            "gather_subset": gather_tiles.gather_subset,
+            "scatter_tiles": gather_tiles.scatter_tiles,
+            "spmv_dia": dia.spmv_dia, "spmv_bsr": spmv_bsr.spmv_bsr,
+        }
+        self.plain = {
+            "gather": shuffle.gather_plain,
+            "expand": piecewise.expand_plain,
+            "fused_class": window_fused.fused_class_plain,
+            "runcopy": runcopy.runcopy_plain,
+            "gather_subset": gather_tiles.gather_subset_plain,
+            "scatter_tiles": gather_tiles.scatter_tiles_plain,
+            "spmv_dia": (lambda vals, offs, x, m, off_t=None:
+                         dia.spmv_dia_plain(vals, offs, x, m)),
+            "spmv_bsr": spmv_bsr.spmv_bsr_plain,
+        }
+        # where the SpMV path looks each wrapper up (module, attribute)
+        self.sites = {
+            "gather_subset": [(flat_gather, "gather_subset")],
+            "scatter_tiles": [(flat_gather, "scatter_tiles")],
+            "gather": [(flat_gather, "gather"), (shuffle, "gather")],
+            "spmv_dia": [(dia, "spmv_dia")],
+            "spmv_bsr": [(spmv_bsr, "spmv_bsr")],
+        }
+        self.calls = {k: [] for k in KERNELS}     # [(path, args)]
+        self.launches = {k: 0 for k in KERNELS}
+        self.path_launches = {}                   # path: {kernel: count}
 
-    t0 = time.perf_counter()
-    cuda_lib.KERNELS.get()
-    print(f"kernels built: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {' '.join(cuda_lib.NVCC_FLAGS)})", flush=True)
+    # -- launch counts ------------------------------------------------------
+
+    def counted(self, fn, expect, path: str):
+        """Run ``fn`` with every launch count at 0 and fail unless each
+        kernel in ``expect`` launched; returns fn's result."""
+        for w in self.wrappers.values():
+            w.launches = 0
+        out = fn()
+        self.torch.cuda.synchronize()
+        got = {k: w.launches for k, w in self.wrappers.items() if w.launches}
+        print(f"{path}: launches {got}", flush=True)
+        missing = [k for k in expect if not got.get(k)]
+        if missing:
+            fail(f"{path}: kernel(s) {missing} never launched: {got}")
+        for k, n in got.items():
+            self.launches[k] += n
+        self.path_launches[path] = got
+        return out
+
+    # -- recording and swapping wrappers ------------------------------------
+
+    @contextlib.contextmanager
+    def patched(self, make):
+        """Replace each SpMV wrapper where the path looks it up by
+        ``make(kernel name, wrapper)``."""
+        saved = []
+        for k, sites in self.sites.items():
+            for mod, attr in sites:
+                saved.append((mod, attr, getattr(mod, attr)))
+                setattr(mod, attr, make(k, self.wrappers[k]))
+        try:
+            yield
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+
+    def record(self, fn, path: str):
+        """Run ``fn`` once, keeping every SpMV kernel call's inputs (the
+        in-place outputs as they were before the call)."""
+        clone_arg = {"gather_subset": 4, "scatter_tiles": 0}
+
+        def make(k, w):
+            def call(*args):
+                kept = list(args)
+                if k in clone_arg:
+                    kept[clone_arg[k]] = args[clone_arg[k]].clone()
+                self.calls[k].append((path, tuple(kept)))
+                return w(*args)
+            # a wrapper counts through its module's global name, which is
+            # this recorder while it is patched in: give it a count to
+            # bump (the counts are read only in unpatched runs)
+            call.launches = 0
+            return call
+
+        with self.patched(make):
+            fn()
+        self.torch.cuda.synchronize()
+
+    def plain_mode(self):
+        """Every SpMV kernel replaced by its plain version."""
+        return self.patched(lambda k, w: self.plain[k])
+
+    # -- the SpMV paths -----------------------------------------------------
+
+    def spmv_path(self, path, a, fmt, x, expect, check_dtype) -> None:
+        """One SpMV path: counted run, scipy check, recorded run, and the
+        whole product timed with the kernels, with the plain versions and
+        as one cuSPARSE CSR call (the yardstick)."""
+        torch, nt = self.torch, self.nt
+        x_d = x.to(self.dev)
+        y = self.counted(lambda: nt.spmv(fmt, x_d), expect, path)
+        ok, nf = nt.ans_check(y, nt.spmv_oracle(a, x), dtype=check_dtype,
+                              verbose=True, scale=nt.spmv_abs_oracle(a, x))
+        rtol = 1e-5 if check_dtype == np.float32 else 1e-8
+        print(f"{path}: y vs scipy (rtol {rtol:g}, "
+              f"|A||x| bound): {'pass' if ok else 'FAIL'}  finite "
+              f"{bool(torch.isfinite(y).all())}", flush=True)
+        if not ok or not torch.isfinite(y).all():
+            fail(f"{path}: {nf} entries of y disagree with scipy")
+        self.record(lambda: nt.spmv(fmt, x_d), path)
+
+        t = {"kernels": [], "plain": []}
+        for mode in ("plain", "kernels", "kernels", "plain"):
+            ctx = self.plain_mode() if mode == "plain" \
+                else contextlib.nullcontext()
+            with ctx:
+                t[mode].append(self.time_cuda(lambda: nt.spmv(fmt, x_d),
+                                              trials=TRIALS))
+        a_d = a.to(self.dev)
+        csr = torch.sparse_csr_tensor(a_d.rpt.long(), a_d.col.long(),
+                                      a_d.val, size=a.shape)
+        lib_ms = self.time_cuda(lambda: csr @ x_d, trials=TRIALS)
+        ms = float(np.mean(t["kernels"]))
+        bytes_csr = self.csr_bytes(a)
+        print(f"{path} [{self.name}, {self.card}]: kernels {ms:.4f} ms "
+              f"({t['kernels']})  plain {np.mean(t['plain']):.4f} ms "
+              f"({t['plain']})  torch.sparse CSR @ x {lib_ms:.4f} ms  "
+              f"{2 * a.nnz / (ms * 1e-3) / 1e9:.2f} GFLOPS  CSR bound "
+              f"{bytes_csr / self.bw * 1e3:.4f} ms ({bytes_csr} B)",
+              flush=True)
+
+    def csr_bytes(self, a) -> int:
+        """Least traffic of a CSR SpMV (values, column indices, row
+        pointers, x and y once each)."""
+        vb = a.val.element_size()
+        return a.nnz * (vb + 4) + (a.shape[0] + 1) * 4 + sum(a.shape) * vb
+
+    # -- per-kernel comparison, timing and bounds ---------------------------
+
+    @staticmethod
+    def fresh(k, args):
+        """A recorded call's arguments with fresh copies of the outputs
+        that K5 and K6 update in place."""
+        args = list(args)
+        if k == "gather_subset":
+            args[4] = args[4].clone()
+        elif k == "scatter_tiles":
+            args[0] = args[0].clone()
+        return args
+
+    def run(self, k, fn, args):
+        """``fn`` on a recorded call, on fresh copies of in-place outputs."""
+        return fn(*self.fresh(k, args))
+
+    def tolerance(self, k, args):
+        """None for exact kernels; else the per-entry bound rtol * |A||x|
+        for the two SpMV kernels, whose sums may differ from the plain
+        version by FMA contraction (K7) and summation order (K8)."""
+        if k == "spmv_dia":
+            vals, offs, x, m = args[:4]
+            scale = self.plain[k](vals.abs(), offs, x.abs(), m)
+        elif k == "spmv_bsr":
+            a, x = args
+            scale = self.plain[k](dataclasses.replace(a, data=a.data.abs()),
+                                  x.abs())
+        else:
+            return None
+        return (1e-6 if scale.dtype == self.torch.float32 else 1e-12) * scale
+
+    def bound_ms(self, k, args, out):
+        """The least time of one call: the larger of its bytes (each input
+        read once, each output written once) over device memory bandwidth
+        and, for K7/K8, its operations over the peak rate.  A gather (K1,
+        K5) reads only the source values its valid indices name, each
+        once, and K5 reads ``other`` only where a slot gathers."""
+        torch = self.torch
+        ops = 0.0
+
+        def gathered(src, slots):
+            """(valid-slot mask, distinct source values read)."""
+            valid = (slots >= 0) & (slots < src.numel())
+            return valid, int(torch.unique(slots[valid]).numel())
+
+        if k == "gather":
+            src, idx = args
+            _, reads = gathered(src, idx)
+            vb = src.element_size()
+            nbytes = idx.numel() * 4 + reads * vb + out.numel() * vb
+        elif k == "gather_subset":
+            src, idx, ids, unit, _, other = (*args, None)[:6]
+            pos = (ids.long()[:, None] * unit
+                   + torch.arange(unit, device=ids.device)).reshape(-1)
+            valid, reads = gathered(src, idx[pos])
+            n, vb = pos.numel(), src.element_size()
+            n_other = 0 if other is None else \
+                int((valid & (pos < other.numel())).sum())
+            nbytes = n * 4 + (reads + n_other + n) * vb
+        elif k == "scatter_tiles":
+            dst, ids, vals, _ = args
+            nbytes = 2 * vals.numel() * vals.element_size() + ids.numel() * 4
+        else:
+            seen, nbytes = set(), 0
+
+            def walk(o):
+                nonlocal nbytes
+                if isinstance(o, torch.Tensor):
+                    key = (o.data_ptr(), o.numel())
+                    if key not in seen:
+                        seen.add(key)
+                        nbytes += o.numel() * o.element_size()
+                elif isinstance(o, (tuple, list)):
+                    for v in o:
+                        walk(v)
+                elif dataclasses.is_dataclass(o):
+                    for f in dataclasses.fields(o):
+                        walk(getattr(o, f.name))
+
+            walk(args)
+            nbytes += out.numel() * out.element_size()
+            if k == "spmv_dia":
+                ops = 2.0 * args[0].shape[0] * args[3]
+            elif k == "spmv_bsr":
+                ops = 2.0 * args[0].data.numel()
+        t_bytes = nbytes / self.bw * 1e3
+        t_ops = ops / PEAK_FLOPS[out.element_size()] * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    def library_call(self, k, args):
+        """One PyTorch call computing the same function, or None."""
+        torch = self.torch
+        # the gathers' indices are clamped into the source once, outside
+        # the timing: PyTorch's indexing asserts on an index past the end,
+        # where the kernels give 0
+        if k == "gather":
+            x, idx = args
+            il = idx.long().clamp(0, max(x.numel() - 1, 0))
+            return lambda: x[il]
+        if k == "gather_subset":
+            src, idx, ids, unit = args[:4]
+            il = idx.view(-1, unit)[ids.long()].reshape(-1).long().clamp(
+                0, max(src.numel() - 1, 0))
+            return lambda: src[il]
+        if k == "scatter_tiles":
+            dst, ids, vals, tile = args
+            d2, il, v2 = dst.clone().view(-1, tile), ids.long(), \
+                vals.view(-1, tile)
+            return lambda: d2.index_copy_(0, il, v2)
+        if k == "spmv_bsr":
+            a, x = args
+            br, bc = a.blocksize
+            nbc = (a.shape[1] + bc - 1) // bc
+            bsr = torch.sparse_bsr_tensor(
+                a.block_rpt.long(), a.block_col.long(), a.data,
+                size=(a.n_block_rows * br, nbc * bc))
+            xp = torch.nn.functional.pad(x, (0, nbc * bc - x.numel()))
+            try:
+                bsr @ xp
+                return lambda: bsr @ xp
+            except RuntimeError:  # BSR times a vector may want a matrix
+                return lambda: bsr @ xp[:, None]
+        return None
+
+    def check_calls(self, k, calls):
+        """Every call of kernel ``k`` against its plain version; returns
+        (max abs error, bound ms, bound kinds)."""
+        err, bound, by = 0.0, 0.0, set()
+        for path, args in calls:
+            got = self.run(k, self.wrappers[k], args)
+            want = self.run(k, self.plain[k], args)
+            if got.shape != want.shape:
+                fail(f"{k} on {path}: shape {tuple(got.shape)} != "
+                     f"{tuple(want.shape)}")
+            diff = (got - want).abs()
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+            tol = self.tolerance(k, args)
+            if (tol is None and not self.torch.equal(got, want)) or (
+                    tol is not None and bool((diff > tol).any())):
+                fail(f"{k} on {path} disagrees with its plain version: "
+                     f"max abs err {float(diff.max())}")
+            b, bb = self.bound_ms(k, args, got)
+            bound += b
+            by.add(bb)
+        return err, bound, by
+
+    def time_calls(self, k, calls):
+        """(kernel ms, plain ms, library ms or None) of one pass over
+        ``calls``, CUDA events over TRIALS passes."""
+        # the in-place outputs are copied once, outside the timing (each
+        # timed pass rewrites the same slots)
+        arglists = [self.fresh(k, args) for _, args in calls]
+
+        def run_all(fn):
+            for args in arglists:
+                fn(*args)
+
+        plain_ms = self.time_cuda(lambda: run_all(self.plain[k]),
+                                  trials=TRIALS)
+        ms = self.time_cuda(lambda: run_all(self.wrappers[k]), trials=TRIALS)
+        lib = [self.library_call(k, args) for _, args in calls]
+        lib_ms = None
+        if all(f is not None for f in lib):
+            try:
+                def run_lib():
+                    for f in lib:
+                        f()
+                lib_ms = self.time_cuda(run_lib, trials=TRIALS)
+            except RuntimeError as e:  # not every library call exists
+                print(f"{k}: library call failed ({e}); library_ms null")
+        return ms, plain_ms, lib_ms
+
+    def kernel_table(self):
+        """Per kernel: a line per path and one aggregate row (sums over
+        every path the kernel ran on) for the JSON table."""
+        table = []
+        fmt = lambda v: "null" if v is None else f"{v:.4f}"  # noqa: E731
+        for k, (route, src, replaces) in KERNELS.items():
+            if not self.calls[k]:
+                fail(f"{k}: no recorded call on any path")
+            tol_txt = "exact" if self.tolerance(k, self.calls[k][0][1]) \
+                is None else "rtol 1e-6 (f32) / 1e-12 (f64) of |A||x|"
+            tot = dict(err=0.0, bound=0.0, by=set(), ms=0.0, plain=0.0,
+                       lib=0.0)
+            for path in dict.fromkeys(p for p, _ in self.calls[k]):
+                calls = [c for c in self.calls[k] if c[0] == path]
+                err, bound, by = self.check_calls(k, calls)
+                ms, plain_ms, lib_ms = self.time_calls(k, calls)
+                print(f"  {k} on {path}: {len(calls)} call(s)  launches "
+                      f"{self.path_launches[path].get(k, 0)}  kernel "
+                      f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+                      f"{fmt(lib_ms)} ms  bound {bound:.4f} ms "
+                      f"({'/'.join(sorted(by))})  max_abs_err {err}",
+                      flush=True)
+                tot["err"] = max(tot["err"], err)
+                tot["bound"] += bound
+                tot["by"] |= by
+                tot["ms"] += ms
+                tot["plain"] += plain_ms
+                tot["lib"] = None if lib_ms is None or tot["lib"] is None \
+                    else tot["lib"] + lib_ms
+            print(f"{k}: {len(self.calls[k])} call(s)  launches "
+                  f"{self.launches[k]}  max_abs_err {tot['err']} (tolerance: "
+                  f"{tol_txt})  kernel {tot['ms']:.4f} ms  plain "
+                  f"{tot['plain']:.4f} ms  library {fmt(tot['lib'])} ms  "
+                  f"bound {tot['bound']:.4f} ms  [{self.name}, {self.card}]",
+                  flush=True)
+            table.append(dict(
+                name=k, route=route, source=src, replaces=replaces,
+                launches=self.launches[k], max_abs_err=tot["err"],
+                ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
+                bound_by="bytes" if tot["by"] == {"bytes"} else "operations",
+                library_ms=tot["lib"], calls=len(self.calls[k])))
+        return table
+
+
+def spgemm_phase(s: Smoke) -> None:
+    """C = A @ A on R-MAT-14: checks, timings and profile (unchanged
+    from the first slice), its kernel calls added to the record."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops.spgemm_window import (
+        KERNEL_OPS, PLAIN_OPS, spgemm_numeric_window)
 
     a = nt.rmat_csr(SCALE, EDGE_FACTOR, dtype=np.float32, seed=SEED)
     t0 = time.perf_counter()
@@ -165,21 +528,10 @@ def main() -> None:
     if (plan.n_products, plan.c_nnz) != (N_PRODUCTS, NNZ_C):
         fail(f"funnel {plan.n_products}/{plan.c_nnz}, "
              f"expected {N_PRODUCTS}/{NNZ_C}")
-    plan_d, a_d = plan.to(dev), a.to(dev)
+    plan_d, a_d = plan.to(s.dev), a.to(s.dev)
 
-    wrappers = {"gather": shuffle.gather,
-                "expand": piecewise.piecewise_expand,
-                "fused_class": window_fused.fused_class_apply,
-                "runcopy": runcopy.runcopy}
-    for fn in wrappers.values():
-        fn.launches = 0
-    c = nt.spgemm_numeric(plan_d, a_d, a_d)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"main path launches: {launches}")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the main path never launched: {launches}")
-
+    c = s.counted(lambda: nt.spgemm_numeric(plan_d, a_d, a_d),
+                  ["gather", "expand", "fused_class", "runcopy"], "spgemm")
     ref_ok = nt.check_spgemm_answer(
         c, nt.spgemm_oracle(a, a), verbose=True,
         abs_ref=nt.spgemm_abs_oracle(a, a))
@@ -192,7 +544,7 @@ def main() -> None:
 
     v2 = np.random.default_rng(SEED + 1).standard_normal(a.nnz)
     a2 = a.with_values(torch.from_numpy(v2.astype(np.float32)))
-    c2 = nt.spgemm_numeric(plan_d, a2.to(dev), a2.to(dev))
+    c2 = nt.spgemm_numeric(plan_d, a2.to(s.dev), a2.to(s.dev))
     rerun_ok = nt.check_spgemm_answer(
         c2, nt.spgemm_oracle(a2, a2), verbose=True,
         abs_ref=nt.spgemm_abs_oracle(a2, a2))
@@ -202,7 +554,7 @@ def main() -> None:
         fail("value re-run does not match the scipy oracle")
 
     a64 = a2.with_values(torch.from_numpy(v2))
-    c64 = nt.spgemm_numeric(plan_d, a64.to(dev), a64.to(dev))
+    c64 = nt.spgemm_numeric(plan_d, a64.to(s.dev), a64.to(s.dev))
     f64_ok = nt.check_spgemm_answer(
         c64, nt.spgemm_oracle(a64, a64), verbose=True,
         abs_ref=nt.spgemm_abs_oracle(a64, a64))
@@ -211,51 +563,215 @@ def main() -> None:
     if not f64_ok:
         fail("float64 numeric does not match the scipy oracle")
 
-    # each kernel vs its plain version, on the main path's own inputs
-    calls = record_calls(plan_d, a_d, spgemm_numeric_window, KERNEL_OPS)
-    table = []
-    for field, (kname, route, src, replaces) in KERNELS.items():
-        kernel, plain = getattr(KERNEL_OPS, field), getattr(PLAIN_OPS, field)
-        err = 0.0
-        for args in calls[field]:
-            got, want = kernel(*args), plain(*args)
-            if got.shape != want.shape:
-                fail(f"{kname}: shape {tuple(got.shape)} != "
-                     f"{tuple(want.shape)}")
-            err = max(err, float((got - want).abs().max()))
+    # the main path's own kernel calls, for the per-kernel comparison
+    ops_type = type(KERNEL_OPS)
 
-        def run(fn, arglist=calls[field]):
-            for args in arglist:
-                fn(*args)
+    def recorder(field):
+        def call(*args):
+            s.calls[SPGEMM_FIELDS[field]].append(("spgemm", args))
+            return getattr(KERNEL_OPS, field)(*args)
+        return call
 
-        plain_ms = time_cuda(lambda: run(plain), trials=TRIALS)
-        ms = time_cuda(lambda: run(kernel), trials=TRIALS)
-        table.append(dict(
-            name=kname, route=route, source=src, replaces=replaces,
-            launches=launches[kname], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, calls_per_numeric=len(calls[field])))
-        print(f"{kname}: {len(calls[field])} call(s)/numeric  max_abs_err "
-              f"{err} (tolerance: exact)  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  [{name}]", flush=True)
-        if err != 0.0:
-            fail(f"{kname} disagrees with its plain version: {err}")
+    spgemm_numeric_window(plan_d, a_d, a_d,
+                          ops=ops_type(*map(recorder, ops_type._fields)))
 
-    # numeric phase: plain, kernels, kernels, plain (one card, one call)
     times = {"plain": [], "kernels": []}
     for mode in ("plain", "kernels", "kernels", "plain"):
         ops = PLAIN_OPS if mode == "plain" else KERNEL_OPS
-        times[mode].append(time_cuda(
+        times[mode].append(s.time_cuda(
             lambda: spgemm_numeric_window(plan_d, a_d, a_d, ops=ops),
             trials=TRIALS))
     ms_k, ms_p = float(np.mean(times["kernels"])), float(np.mean(times["plain"]))
-    print(f"numeric phase [{name}, {card}]: kernels {ms_k:.4f} ms "
+    print(f"numeric phase [{s.name}, {s.card}]: kernels {ms_k:.4f} ms "
           f"({times['kernels']})  plain {ms_p:.4f} ms ({times['plain']})  "
           f"{2 * plan.n_products / (ms_k * 1e-3) / 1e9:.2f} GFLOPS")
-    profile_numeric(torch, lambda: spgemm_numeric_window(plan_d, a_d, a_d))
+    profile_calls(torch, lambda: spgemm_numeric_window(plan_d, a_d, a_d),
+                  "numeric")
 
+
+def ell_kernels(ell):
+    """The kernels an ELL SpMV must launch, from its gather plans: K5 for
+    class subsets, K1 and K6 for fallback tiles, K1 for the x-shuffle."""
+    plans = [ell.pos_gp]
+    plans += [ell.uniq_cols_gp, ell.xfill_gp] if ell.xsh is not None \
+        else list(ell.cols_gp)
+    need = set()
+    if any(i.numel() for p in plans for i in p.ids):
+        need.add("gather_subset")
+    if any(p.fb_ids.numel() for p in plans):
+        need |= {"gather", "scatter_tiles"}
+    if ell.xsh is not None:
+        need.add("gather")
+    return sorted(need)
+
+
+def spmv_phases(s: Smoke) -> None:
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.tune.plan import Plan
+
+    def x_for(n, dtype):
+        return torch.from_numpy(
+            np.random.default_rng(0).standard_normal(n).astype(dtype))
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"host: {what} {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    # irregular: Graph500-style R-MAT, the bench's ELL geometry
+    a = timed(f"generate R-MAT-{RMAT_SCALE}", lambda: nt.rmat_csr(
+        RMAT_SCALE, RMAT_EF, dtype=np.float32, seed=RMAT_SEED))
+    deg = a.rpt.diff()
+    print(f"R-MAT-{RMAT_SCALE}: {a.shape[0]} rows, nnz {a.nnz}, max degree "
+          f"{int(deg.max())}, empty rows {int((deg == 0).sum())}")
+    geom = dict(min_width=2, max_slabs=10, sigma=1024)
+    ell_x = timed("ELL with x-shuffle", lambda: nt.ELL.from_csr(
+        a, xshuffle=True, **geom))
+    ell_d = timed("ELL direct", lambda: nt.ELL.from_csr(
+        a, xshuffle=False, **geom))
+    fb = sum(g.class_fracs["fallback"] * v.numel()
+             for g, v in zip(ell_d.cols_gp, ell_d.vals)) / ell_d.padded_nnz
+    print(f"ELL: widths {ell_d.widths}, {ell_d.padded_nnz} slots, "
+          f"fallback share of x tiles {fb:.4f}; x-shuffle plans: uniq "
+          f"{ell_x.uniq_cols_gp.class_fracs}, fill "
+          f"{ell_x.xfill_gp.class_fracs}, pos {ell_x.pos_gp.class_fracs}")
+    x = x_for(a.shape[1], np.float32)
+    ell_x_d = timed("ELL x-shuffle to the card", lambda: ell_x.to(s.dev))
+    s.spmv_path(f"rmat{RMAT_SCALE}-ell-xshuffle", a, ell_x_d, x,
+                ell_kernels(ell_x), np.float32)
+    s.spmv_path(f"rmat{RMAT_SCALE}-ell-direct", a, ell_d.to(s.dev), x,
+                ell_kernels(ell_d), np.float32)
+    del ell_d
+    x_d = x.to(s.dev)
+    profile_calls(torch, lambda: nt.spmv(ell_x_d, x_d), "ELL x-shuffle SpMV")
+
+    # f64 re-run of the x-shuffle ELL (same plans, values in f64)
+    a64 = a.with_values(a.val.double())
+    ell64 = dataclasses.replace(
+        ell_x_d, vals=tuple(v.double() for v in ell_x_d.vals))
+    s.spmv_path(f"rmat{RMAT_SCALE}-ell-xshuffle-f64", a64, ell64,
+                x_for(a.shape[1], np.float64), ell_kernels(ell_x), np.float64)
+    del ell_x, ell_x_d, ell64, a64, a
+
+    # banded: 5-point stencil as DIA and as row-ordered ELL
+    a = timed(f"generate stencil {STENCIL}x{STENCIL}",
+              lambda: nt.stencil_csr(STENCIL, STENCIL, dtype=np.float32))
+    dia = timed("DIA", lambda: nt.DIA.from_csr(a))
+    print(f"stencil: {a.shape[0]} rows, nnz {a.nnz}, offsets {dia.offsets}")
+    x = x_for(a.shape[1], np.float32)
+    s.spmv_path("stencil-dia", a, dia.to(s.dev), x, ["spmv_dia"], np.float32)
+    ell = timed("ELL sigma 0", lambda: nt.ELL.from_csr(a, sigma=0))
+    s.spmv_path("stencil-ell-sigma0", a, ell.to(s.dev), x, ell_kernels(ell),
+                np.float32)
+    del ell
+    a64 = a.with_values(a.val.double())
+    s.spmv_path("stencil-dia-f64", a64,
+                dataclasses.replace(dia, vals=dia.vals.double()).to(s.dev),
+                x_for(a.shape[1], np.float64), ["spmv_dia"], np.float64)
+
+    # the --format auto path: the tuner in model mode, with the bench's
+    # banded candidate list (bench.py's banded stage)
+    cands = [Plan(format="dia"), Plan(format="ell", sigma=0),
+             Plan(format="csr")]
+    fmt, plan = timed("autotune (model mode)", lambda: nt.autotune_spmv(
+        a, x, candidates=cands, measure=False, device=s.dev))
+    print(f"tuner chose {plan.format} ({plan.memory_bytes} B)")
+    y = s.counted(lambda: nt.spmv(fmt, x.to(s.dev)),
+                  ["spmv_dia"] if plan.format == "dia" else [], "tuner")
+    ok, nf = nt.ans_check(y, nt.spmv_oracle(a, x), dtype=np.float32,
+                          scale=nt.spmv_abs_oracle(a, x))
+    print(f"tuner: y vs scipy {'pass' if ok else 'FAIL'}")
+    if not ok or plan.format != "dia":
+        fail(f"tuner: format {plan.format}, {nf} mismatches")
+    del a, a64, dia, fmt
+
+    # FEM: dense 16-dof blocks as (128, 128) BSR tiles
+    a = timed("generate FEM", lambda: nt.fem_block_csr(
+        FEM["n_nodes"], dof=FEM["dof"], neighbors=FEM["neighbors"],
+        bandwidth=FEM["bandwidth"], dtype=np.float32, seed=FEM["seed"]))
+    bsr = timed("BSR (128, 128)", lambda: nt.BSR.from_csr(a, (128, 128)))
+    print(f"FEM: {a.shape[0]} rows, nnz {a.nnz}, {bsr.nblocks} tiles, fill "
+          f"{bsr.fill_ratio:.2f}, {bsr.data.numel() * 4} B of tiles")
+    bsr_d = bsr.to(s.dev)
+    s.spmv_path("fem-bsr128", a, bsr_d, x_for(a.shape[1], np.float32),
+                ["spmv_bsr"], np.float32)
+    precision_check(s, bsr_d)
+
+
+def precision_check(s: Smoke, bsr_d) -> None:
+    """With TF32 turned on by the caller, ``spmm`` and the plain BSR SpMV
+    must still compute in full float32: both held against K8 at rtol 1e-6
+    of |A||x| per column.  The unguarded einsum is shown beside them, to
+    show what TF32 would have cost."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops.kernels import spmv_bsr as k8
+
+    cols = 4
+    xs = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (bsr_d.shape[1], cols)).astype(np.float32)).to(s.dev)
+    xcol = [xs[:, j].contiguous() for j in range(cols)]
+    want = torch.stack([k8.spmv_bsr(bsr_d, xj) for xj in xcol], 1)
+    abs_a = dataclasses.replace(bsr_d, data=bsr_d.data.abs())
+    scale = torch.stack([k8.spmv_bsr_plain(abs_a, xj.abs()) for xj in xcol],
+                        1).clamp(min=1e-30)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_mm = nt.spmm(bsr_d, xs)
+        y_pl = torch.stack([k8.spmv_bsr_plain(bsr_d, xj) for xj in xcol], 1)
+        kept = torch.backends.cuda.matmul.allow_tf32
+        br, bc = bsr_d.blocksize
+        xp = torch.nn.functional.pad(xs, (0, 0, 0, -xs.shape[0] % bc))
+        xg = xp.reshape(-1, bc, cols)[bsr_d.block_col.long()]
+        y_raw = torch.zeros(bsr_d.n_block_rows, br, cols, device=s.dev)
+        y_raw.index_add_(0, bsr_d.block_row.long(),
+                         torch.einsum("krc,kcj->krj", bsr_d.data, xg))
+        y_raw = y_raw.reshape(-1, cols)[: bsr_d.shape[0]]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    rel = {name: float(((y - want).abs() / scale).max())
+           for name, y in (("spmm", y_mm), ("plain spmv", y_pl),
+                           ("unguarded einsum", y_raw))}
+    ok = rel["spmm"] <= 1e-6 and rel["plain spmv"] <= 1e-6 and kept
+    print(f"fem-bsr128 with TF32 allowed: max |err| / (|A||x|) vs K8 "
+          f"{rel}; caller's setting kept {kept}: {'pass' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("BSR products lost full float32 precision under TF32")
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    try:
+        import nsparse_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port is not importable (run from the repository root): {e}")
+
+    card = card_line()
+    print(card)
+    s = Smoke(torch, card)
+    print(f"device: {s.name}  torch {torch.__version__}  cuda "
+          f"{torch.version.cuda}  python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    s.cuda_lib.KERNELS.get()
+    print(f"kernels built: {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {' '.join(s.cuda_lib.NVCC_FLAGS)})", flush=True)
+
+    spgemm_phase(s)
+    spmv_phases(s)
+    table = s.kernel_table()
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": s.name,
         "count": torch.cuda.device_count()}}))
 
 

@@ -1,7 +1,7 @@
 """Builds shared libraries at first use into the package's ``_build/``.
 
 Both native parts of the port go through here: the host planner (g++ on
-the JAX package's ``native/*.cpp``) and the Hopper kernels (nvcc on
+the port's ``native/*.cpp``) and the Hopper kernels (nvcc on
 ``csrc/*.cu``).  A library is named by a hash of its sources and flags, so
 an edited source builds anew; a file lock keeps concurrent processes (test
 workers) from building the same library twice, and the compiler writes to
@@ -20,17 +20,18 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 
-def build_shared(name: str, sources, cmd_prefix, timeout: float):
+def build_shared(name: str, sources, cmd_prefix, timeout: float, deps=()):
     """Compile ``sources`` into ``_build/<name>-<hash>.so`` if missing and
     return the loaded ``ctypes.CDLL``.
 
     ``cmd_prefix`` is the compiler command without output and sources, e.g.
-    ``["g++", "-O3", "-shared", "-fPIC"]``.  Raises
+    ``["g++", "-O3", "-shared", "-fPIC"]``; ``deps`` are headers the
+    sources include (hashed, not compiled).  Raises
     ``subprocess.CalledProcessError`` (with the compiler's output) or
     ``FileNotFoundError`` when the compiler is missing.
     """
     h = hashlib.sha256(" ".join(cmd_prefix).encode())
-    for src in sources:
+    for src in (*sources, *deps):
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -1,13 +1,15 @@
 """Command line of the port (counterpart of ``nsparse_tpu/cli.py``).
 
+    python -m nsparse_tpu_torch --precision single spmv gen:stencil:2048:2048 --format dia
     python -m nsparse_tpu_torch --precision single spgemm gen:rmat:14:8 --planner host
 
-Loads a matrix (a .mtx path, ``gen:rmat:SCALE:EF`` or ``gen:stencil:NX:NY``),
-builds the host plan of C = A @ A, times the numeric phase, and checks C
-against the scipy oracle: it prints the same funnel and pass/FAIL verdict
-as the JAX CLI.  It runs on the card when one is present, timed with CUDA
-events; without one it runs on the CPU, timed by the host clock and
-labelled as such.
+Loads a matrix (a .mtx path, ``gen:stencil:NX:NY``, ``gen:rmat:SCALE:EF``,
+``gen:fem:NODES:DOF`` or ``gen:random:M:N:DENSITY``), builds the format or
+the plan, times the product and checks it against the scipy oracle,
+printing the same lines and pass/FAIL verdict as the JAX CLI.  It runs on
+the card (``--device cuda``, the default), timed with CUDA events; it
+refuses to start when no card is visible.  ``--device cpu`` runs it on
+the host, timed by the host clock and labelled as such.
 """
 
 from __future__ import annotations
@@ -21,17 +23,112 @@ import torch
 
 
 def _load(spec: str, dtype):
-    from nsparse_tpu_torch.io.generate import rmat_csr, stencil_csr
+    from nsparse_tpu_torch.io.generate import (
+        fem_block_csr,
+        random_csr,
+        rmat_csr,
+        stencil_csr,
+    )
     from nsparse_tpu_torch.io.matrix_market import read_mtx
 
     if spec.startswith("gen:"):
         parts = spec.split(":")
-        if parts[1] == "stencil":
+        kind = parts[1]
+        if kind == "stencil":
             return stencil_csr(int(parts[2]), int(parts[3]), dtype=dtype)
-        if parts[1] == "rmat":
+        if kind == "rmat":
             return rmat_csr(int(parts[2]), int(parts[3]), dtype=dtype)
-        raise SystemExit(f"unknown generator {parts[1]}")
+        if kind == "fem":
+            return fem_block_csr(int(parts[2]), dof=int(parts[3]),
+                                 dtype=dtype)
+        if kind == "random":
+            return random_csr(int(parts[2]), int(parts[3]), float(parts[4]),
+                              dtype=dtype)
+        raise SystemExit(f"unknown generator {kind}")
     return read_mtx(spec, dtype=dtype)
+
+
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA card is visible to PyTorch; pass "
+            "--device cpu to run on the host")
+    return dev
+
+
+def _timed(fn, dev: torch.device, trials: int):
+    """(ms per call, label): CUDA events on a card, the host clock on the
+    CPU."""
+    if dev.type == "cuda":
+        from nsparse_tpu_torch.utils.timing import time_cuda
+
+        return (time_cuda(fn, trials=trials),
+                torch.cuda.get_device_name(dev))
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(trials):
+        fn()
+    return ((time.perf_counter() - t0) * 1e3 / max(trials, 1),
+            f"{dev}, host clock")
+
+
+def cmd_spmv(args) -> int:
+    from nsparse_tpu_torch.formats.bsr import BSR
+    from nsparse_tpu_torch.formats.dia import DIA
+    from nsparse_tpu_torch.formats.ell import ELL
+    from nsparse_tpu_torch.ops.spmv import spmv
+    from nsparse_tpu_torch.tune.autotune import autotune_spmv
+    from nsparse_tpu_torch.tune.plan import Plan
+    from nsparse_tpu_torch.utils.checking import (
+        ans_check,
+        spmv_abs_oracle,
+        spmv_oracle,
+    )
+
+    dtype = np.float32 if args.precision == "single" else np.float64
+    dev = _device(args.device)
+    a = _load(args.matrix, dtype)
+    m, n = a.shape
+    print(f"matrix: {args.matrix}  M={m} N={n} nnz={a.nnz}")
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal(n).astype(dtype))
+
+    t0 = time.perf_counter()
+    if args.format == "auto":
+        fmt, plan = autotune_spmv(a, x, trials=args.tune_trials,
+                                  measure=args.tune_mode == "measure",
+                                  cache_dir=args.plan_cache, device=dev)
+    else:
+        plan = Plan(format=args.format)
+        build = {"ell": ELL.from_csr, "bsr": BSR.from_csr,
+                 "dia": DIA.from_csr}.get(args.format, lambda c: c)
+        fmt = build(a).to(dev)
+    print(f"conversion/tuning: {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+          f"format={plan.format}")
+
+    x_d = x.to(dev)
+    ms, where = _timed(lambda: spmv(fmt, x_d), dev, args.trials)
+    gf = 2.0 * a.nnz / (max(ms, 1e-6) * 1e-3) / 1e9
+    line = f"SpMV [{plan.format}, {where}]: {ms:.4f} ms  {gf:.2f} GFLOPS"
+    if dev.type == "cuda":
+        from nsparse_tpu_torch.utils.roofline import (
+            chip_specs,
+            spmv_roofline_gflops,
+        )
+
+        spec = chip_specs(where)
+        roof = spmv_roofline_gflops(
+            a.nnz, m, n, spec, val_bytes=np.dtype(dtype).itemsize,
+            idx_bytes=0 if plan.format == "dia" else 4,
+            padded_nnz=getattr(fmt, "padded_nnz", a.nnz))
+        line += f"  ({100 * gf / roof:.1f}% of {spec.name} roofline)"
+    print(line)
+
+    ok, nf = ans_check(spmv(fmt, x_d), spmv_oracle(a, x), dtype=dtype,
+                       scale=spmv_abs_oracle(a, x))
+    print("pass" if ok else f"FAIL ({nf} mismatches)")
+    return 0 if ok else 1
 
 
 def cmd_spgemm(args) -> int:
@@ -43,7 +140,7 @@ def cmd_spgemm(args) -> int:
     )
 
     dtype = np.float32 if args.precision == "single" else np.float64
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = _device(args.device)
     a = _load(args.matrix, dtype)
     m, n = a.shape
     print(f"matrix: {args.matrix}  M={m} N={n} nnz={a.nnz}")
@@ -57,35 +154,28 @@ def cmd_spgemm(args) -> int:
     print(f"symbolic (host plan, {plan.planner} planner): {sym_ms:.1f} ms")
 
     plan_d, a_d = plan.to(dev), a.to(dev)
+    ms, where = _timed(lambda: spgemm_numeric(plan_d, a_d, a_d), dev,
+                       args.trials)
+    line = f"SpGEMM numeric [{where}]: {ms:.4f} ms"
     if dev.type == "cuda":
         from nsparse_tpu_torch.utils.roofline import (
             chip_specs,
             spgemm_roofline_gflops,
         )
-        from nsparse_tpu_torch.utils.timing import gflops, time_cuda
+        from nsparse_tpu_torch.utils.timing import gflops
 
-        ms = time_cuda(lambda: spgemm_numeric(plan_d, a_d, a_d),
-                       trials=args.trials)
-        name = torch.cuda.get_device_name(dev)
-        spec = chip_specs(name)
+        spec = chip_specs(where)
         roof = spgemm_roofline_gflops(
             a.nnz, a.nnz, plan.c_nnz, plan.n_products, spec,
-            val_bytes=np.dtype(dtype).itemsize,
-        )
+            val_bytes=np.dtype(dtype).itemsize)
         gf = gflops(plan.flops, ms)
-        print(f"SpGEMM numeric [{name}]: {ms:.4f} ms  {gf:.2f} GFLOPS  "
-              f"({100 * gf / roof:.1f}% of {spec.name} roofline)")
-    else:
-        t0 = time.perf_counter()
-        for _ in range(args.trials):
-            spgemm_numeric(plan_d, a_d, a_d)
-        ms = (time.perf_counter() - t0) * 1e3 / max(args.trials, 1)
-        print(f"SpGEMM numeric [{dev}, host clock]: {ms:.4f} ms")
+        line += (f"  {gf:.2f} GFLOPS  ({100 * gf / roof:.1f}% of "
+                 f"{spec.name} roofline)")
+    print(line)
 
     c = spgemm_numeric(plan_d, a_d, a_d)
     ok = check_spgemm_answer(
-        c, spgemm_oracle(a, a), abs_ref=spgemm_abs_oracle(a, a)
-    )
+        c, spgemm_oracle(a, a), abs_ref=spgemm_abs_oracle(a, a))
     print("pass" if ok else "FAIL")
     return 0 if ok else 1
 
@@ -95,11 +185,34 @@ def main(argv=None) -> int:
     ap.add_argument("--precision", choices=["single", "double"],
                     default="double")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def add_device(p):
+        p.add_argument("--device", default="cuda",
+                       help="where to run: cuda (default; fails without a "
+                            "card) or cpu")
+
+    sp = sub.add_parser("spmv", help="y = A @ x in a chosen or tuned format")
+    sp.add_argument("matrix")
+    sp.add_argument("--format", choices=["auto", "dia", "ell", "bsr", "csr"],
+                    default="auto")
+    sp.add_argument("--trials", type=int, default=101)
+    sp.add_argument("--tune-trials", type=int, default=5)
+    sp.add_argument("--plan-cache", default=None,
+                    help="directory of tuning plans, keyed by matrix and card")
+    sp.add_argument("--tune-mode", choices=["model", "measure"],
+                    default="model",
+                    help="tuning objective: the formats' footprint (model) "
+                         "or measured time per candidate (measure, on a "
+                         "card)")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_spmv)
+
     sg = sub.add_parser("spgemm", help="C = A @ A with a host plan")
     sg.add_argument("matrix")
     sg.add_argument("--trials", type=int, default=11)
     sg.add_argument("--planner", choices=["host"], default="host",
                     help="symbolic phase; only the host planner is ported")
+    add_device(sg)
     sg.set_defaults(fn=cmd_spgemm)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,11 +1,12 @@
 """Host planner and Matrix Market parser, loaded through ctypes.
 
-Counterpart of ``nsparse_tpu/native/__init__.py``.  The C++ sources are the
-JAX package's own ``native/planner.cpp`` and ``native/mmio.cpp``, compiled
-from their paths into this package's build directory (the JAX package's
-``shuffle.cpp``, the Benes router, is not needed: the port routes no masks).
-Everything has a numpy fallback, used when the sources or ``g++`` are
-missing or when a caller passes ``native=False``.
+Counterpart of ``nsparse_tpu/native/__init__.py``.  The C++ sources,
+``planner.cpp`` and ``mmio.cpp`` in this directory, are byte-for-byte
+copies of the JAX package's, so the port builds from its own files into
+its build directory (the JAX package's ``shuffle.cpp``, the Benes router,
+is not copied: the port routes no masks).  Everything has a numpy
+fallback, used when the sources or ``g++`` are missing or when a caller
+passes ``native=False``.
 """
 
 from __future__ import annotations
@@ -17,9 +18,9 @@ import threading
 
 import numpy as np
 
-from nsparse_tpu_torch.buildlib import PKG_DIR, build_shared
+from nsparse_tpu_torch.buildlib import build_shared
 
-_SRC_DIR = os.path.join(os.path.dirname(PKG_DIR), "nsparse_tpu", "native")
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("planner.cpp", "mmio.cpp")
 
 

@@ -1,9 +1,10 @@
 """Builds and loads the port's Hopper kernels (``csrc/*.cu``).
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface (``buildlib.build_shared``) and
-loaded with ctypes.  Nothing here runs at import time: the CPU tests
-import every module on a machine without ``nvcc``.
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
+shared library with a plain C interface per source, all sources at once
+(``buildlib.build_shared`` in parallel threads), and loaded with ctypes.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -13,13 +14,17 @@ import functools
 import os
 import shutil
 import threading
+import types
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from nsparse_tpu_torch.buildlib import PKG_DIR, build_shared
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu")
+SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu",
+           "gather_subset.cu", "scatter_tiles.cu", "spmv_dia.cu",
+           "spmv_bsr.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -36,6 +41,10 @@ _SIGNATURES = {
         ctypes.POINTER(_I32), _P, _I64, _P,
     ],
     "nsp_runcopy": [_P, _P, _P, _P, _I64, _P, _I64, _P],
+    "nsp_gather_subset": [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P],
+    "nsp_scatter_tiles": [_P, _P, _I64, _P, _I64, _P],
+    "nsp_spmv_dia": [_P, _I64, _P, _I32, _P, _I64, _P, _I64, _P],
+    "nsp_spmv_bsr": [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P],
 }
 
 
@@ -58,20 +67,36 @@ class _KernelLib:
 
     @staticmethod
     def _load():
-        srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
-        lib = build_shared(
-            "libnsparse_kernels", srcs, [nvcc(), *NVCC_FLAGS], timeout=900
-        )
+        """Every entry point of every source, as attributes of one
+        namespace."""
+        header = [os.path.join(CSRC_DIR, "common.cuh")]
+
+        def build(src):
+            return build_shared(
+                f"libnsparse_{os.path.splitext(src)[0]}",
+                [os.path.join(CSRC_DIR, src)], [nvcc(), *NVCC_FLAGS],
+                timeout=900, deps=header,
+            )
+
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            libs = list(pool.map(build, SOURCES))
+        types_of = {"nsp_error_string": ([ctypes.c_int], ctypes.c_char_p),
+                    "nsp_max_smem_optin": ([ctypes.POINTER(_I32)],
+                                           ctypes.c_int)}
         for name, argtypes in _SIGNATURES.items():
             for suffix in ("_f32", "_f64"):
-                fn = getattr(lib, name + suffix)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        lib.nsp_error_string.argtypes = [ctypes.c_int]
-        lib.nsp_error_string.restype = ctypes.c_char_p
-        lib.nsp_max_smem_optin.argtypes = [ctypes.POINTER(_I32)]
-        lib.nsp_max_smem_optin.restype = ctypes.c_int
-        return lib
+                types_of[name + suffix] = (argtypes, ctypes.c_int)
+        fns = {}
+        for lib in libs:
+            for name, (argtypes, restype) in types_of.items():
+                if hasattr(lib, name):
+                    fn = getattr(lib, name)
+                    fn.argtypes, fn.restype = argtypes, restype
+                    fns[name] = fn
+        missing = sorted(set(types_of) - set(fns))
+        if missing:
+            raise RuntimeError(f"kernel entry points not built: {missing}")
+        return types.SimpleNamespace(**fns)
 
 
 KERNELS = _KernelLib()

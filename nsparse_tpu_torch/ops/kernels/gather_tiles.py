@@ -1,0 +1,114 @@
+"""Tile-subset gather and tile scatter: kernels K5 and K6.
+
+Counterpart of ``nsparse_tpu/ops/kernels/gather_pallas.py``'s
+``gather_subset_window``/``gather_subset_band`` (K5 ``gather_subset``) and
+``scatter_tiles`` (K6).  The TPU kernels replace a gather the TPU lacks
+with roll-scans over a window or band; Hopper gathers in hardware, so K5
+reads each slot's source directly and one kernel serves every class (the
+class's unit size tells it how many slots a listed id covers).  Both
+kernels update their output in place, as the JAX outputs are aliased.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nsparse_tpu_torch.ops.kernels import cuda_lib
+
+
+def _positions(ids: torch.Tensor, unit: int) -> torch.Tensor:
+    """Flat slot positions covered by the units ``ids``."""
+    return (ids.long()[:, None] * unit
+            + torch.arange(unit, device=ids.device)).reshape(-1)
+
+
+def gather_subset_plain(src: torch.Tensor, idx: torch.Tensor,
+                        ids: torch.Tensor, unit: int, out: torch.Tensor,
+                        other: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K5 (updates ``out`` in place)."""
+    pos = _positions(ids, unit)
+    j = idx[pos].long()
+    n_src = src.numel()
+    if n_src:
+        v = torch.where((j >= 0) & (j < n_src), src[j.clamp(0, n_src - 1)],
+                        0)
+    else:
+        v = torch.zeros(j.shape, dtype=out.dtype, device=out.device)
+    if other is not None:
+        n_o = other.numel()
+        v = v * torch.where(pos < n_o, other[pos.clamp(max=max(n_o - 1, 0))],
+                            0)
+    out[pos] = v
+    return out
+
+
+def gather_subset(src: torch.Tensor, idx: torch.Tensor, ids: torch.Tensor,
+                  unit: int, out: torch.Tensor,
+                  other: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: for every slot ``p`` of the units ``ids`` (``unit`` consecutive
+    slots each), ``out[p] = src[idx[p]]`` (0 where ``idx[p]`` is outside
+    ``src``), times ``other[p]`` when given (0 past its end).  Other
+    slots of ``out`` are left as they are; returns ``out``.
+
+    CPU tensors take :func:`gather_subset_plain`; CUDA tensors launch the
+    kernel (``csrc/gather_subset.cu``) or raise.
+    """
+    if src.dtype != out.dtype or (other is not None
+                                  and other.dtype != out.dtype):
+        raise TypeError("gather_subset: src, other and out must share a dtype")
+    if idx.numel() != out.numel() or out.numel() % unit:
+        raise ValueError("gather_subset: idx and out must be whole units of "
+                         "one length")
+    if src.device.type == "cpu":
+        return gather_subset_plain(src, idx, ids, unit, out, other)
+    tensors = (src, idx, ids, out) + ((other,) if other is not None else ())
+    cuda_lib.require_cuda("gather_subset", *tensors)
+    if ids.numel():
+        fn = cuda_lib.entry("nsp_gather_subset", src.dtype)
+        with torch.cuda.device(src.device):
+            rc = fn(cuda_lib.ptr(src), src.numel(), cuda_lib.ptr(idx),
+                    cuda_lib.ptr(ids), ids.numel(), unit,
+                    cuda_lib.ptr(other) if other is not None else None,
+                    other.numel() if other is not None else 0,
+                    cuda_lib.ptr(out), cuda_lib.stream(src))
+        cuda_lib.check(rc, "gather_subset")
+        gather_subset.launches += 1
+    return out
+
+
+gather_subset.launches = 0
+
+
+def scatter_tiles_plain(dst: torch.Tensor, ids: torch.Tensor,
+                        vals: torch.Tensor, tile: int) -> torch.Tensor:
+    """Plain PyTorch version of K6 (updates ``dst`` in place)."""
+    dst[_positions(ids, tile)] = vals.reshape(-1)
+    return dst
+
+
+def scatter_tiles(dst: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
+                  tile: int) -> torch.Tensor:
+    """K6: ``dst[ids[i]*tile : (ids[i]+1)*tile] = vals[i*tile : ...]``, in
+    place; returns ``dst``.
+
+    CPU tensors take :func:`scatter_tiles_plain`; CUDA tensors launch the
+    kernel (``csrc/scatter_tiles.cu``) or raise.
+    """
+    if vals.numel() != ids.numel() * tile or vals.dtype != dst.dtype \
+            or dst.numel() % tile:
+        raise ValueError("scatter_tiles: dst must be whole tiles and vals "
+                         "len(ids) tiles of dst's dtype")
+    if dst.device.type == "cpu":
+        return scatter_tiles_plain(dst, ids, vals, tile)
+    cuda_lib.require_cuda("scatter_tiles", dst, ids, vals)
+    if ids.numel():
+        fn = cuda_lib.entry("nsp_scatter_tiles", dst.dtype)
+        with torch.cuda.device(dst.device):
+            rc = fn(cuda_lib.ptr(dst), cuda_lib.ptr(ids), ids.numel(),
+                    cuda_lib.ptr(vals), tile, cuda_lib.stream(dst))
+        cuda_lib.check(rc, "scatter_tiles")
+        scatter_tiles.launches += 1
+    return dst
+
+
+scatter_tiles.launches = 0

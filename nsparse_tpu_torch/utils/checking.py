@@ -4,6 +4,8 @@
 - ``ans_check``: fail where ``|y - y_ref| > rtol * max(|y_ref|, scale)``
   with rtol 1e-5 for 4-byte values and 1e-8 for 8-byte values; ``scale``
   is the |A||B| backward-error bound that accepts any summation order.
+- ``spmv_oracle``/``spmv_abs_oracle``: scipy y = A @ x and the |A||x|
+  scale for ``ans_check``.
 - ``check_spgemm_answer``: exact structure (rpt and col equal) plus
   tolerant values against a scipy CSR.
 """
@@ -19,6 +21,21 @@ from nsparse_tpu_torch.formats.csr import CSR
 
 def _rtol_for(dtype) -> float:
     return 1e-5 if np.dtype(dtype).itemsize <= 4 else 1e-8
+
+
+def spmv_oracle(a: CSR, x) -> np.ndarray:
+    """scipy y = A @ x (``x`` a numpy array or a tensor)."""
+    return a.to_scipy() @ _host(x)
+
+
+def spmv_abs_oracle(a: CSR, x) -> np.ndarray:
+    """|A| @ |x|: the backward-error scale of each y_i."""
+    return abs(a.to_scipy().astype(np.float64)) @ np.abs(
+        _host(x).astype(np.float64))
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
 
 def spgemm_oracle(a: CSR, b: CSR):
@@ -42,8 +59,8 @@ def spgemm_abs_oracle(a: CSR, b: CSR):
 def ans_check(y, y_ref, dtype=None, max_report: int = 10,
               verbose: bool = False, scale=None) -> Tuple[bool, int]:
     """Element-wise relative check; returns (ok, n_fail)."""
-    y = np.asarray(y)
-    y_ref = np.asarray(y_ref)
+    y = _host(y)
+    y_ref = _host(y_ref)
     rtol = _rtol_for(dtype or y.dtype)
     denom = np.abs(y_ref)
     if scale is not None:

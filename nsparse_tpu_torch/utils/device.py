@@ -10,7 +10,9 @@ import torch
 
 def to_device(obj, device):
     """Copy of ``obj`` with every tensor moved to ``device``: tensors,
-    tuples and lists of them, and dataclasses holding any of these."""
+    tuples and lists of them, and dataclasses holding any of these.  A
+    dataclass field declared with ``metadata={"host": True}`` stays where
+    it is (host tables that no kernel reads)."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
     if isinstance(obj, (tuple, list)):
@@ -18,7 +20,8 @@ def to_device(obj, device):
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: to_device(getattr(obj, f.name), device)
-            for f in dataclasses.fields(obj) if f.init
+            for f in dataclasses.fields(obj)
+            if f.init and not f.metadata.get("host")
         })
     return obj
 

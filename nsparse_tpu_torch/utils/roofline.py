@@ -1,8 +1,8 @@
-"""Card specs and the SpGEMM roofline (counterpart of
+"""Card specs and the SpMV and SpGEMM rooflines (counterpart of
 ``nsparse_tpu/utils/roofline.py``).
 
-SpGEMM is memory-bound, so its roofline is bytes moved over device memory
-bandwidth.  Bandwidths are NVIDIA's published figures; the H100's form
+Both products are memory-bound, so each roofline is bytes moved over
+device memory bandwidth.  Bandwidths are NVIDIA's published figures; the H100's form
 factors differ (SXM HBM3 vs PCIe HBM2e).
 """
 
@@ -34,6 +34,24 @@ def chip_specs(device_name: str) -> ChipSpec:
         if key in low:
             return spec
     raise KeyError(f"no roofline spec for {device_name!r}")
+
+
+def spmv_bytes(nnz: int, m: int, n: int, val_bytes: int = 4,
+               idx_bytes: int = 4, padded_nnz: int | None = None) -> int:
+    """Least traffic of one SpMV: read the stored values and indices
+    (``padded_nnz`` counts a layout's explicit zeros) and x, write y.  DIA
+    stores no per-entry index: pass ``idx_bytes=0``."""
+    stored = padded_nnz if padded_nnz is not None else nnz
+    return stored * (val_bytes + idx_bytes) + (n + m) * val_bytes
+
+
+def spmv_roofline_gflops(nnz: int, m: int, n: int, spec: ChipSpec,
+                         val_bytes: int = 4, idx_bytes: int = 4,
+                         padded_nnz: int | None = None) -> float:
+    """Bandwidth-bound GFLOPS ceiling of y = A @ x (useful flops 2 nnz)."""
+    seconds = spmv_bytes(nnz, m, n, val_bytes, idx_bytes, padded_nnz) / (
+        spec.hbm_gbps * 1e9)
+    return 2.0 * nnz / seconds / 1e9
 
 
 def spgemm_bytes(nnz_a: int, nnz_b: int, nnz_c: int, n_products: int,

@@ -29,7 +29,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, nsparse_tpu_torch, nsparse_tpu_torch.cli, "
-        "nsparse_tpu_torch.utils.timing, nsparse_tpu_torch.utils.roofline; "
+        "nsparse_tpu_torch.utils.timing, nsparse_tpu_torch.utils.roofline, "
+        "nsparse_tpu_torch.ops.spmv, nsparse_tpu_torch.tune.autotune, "
+        "nsparse_tpu_torch.tune.plan, nsparse_tpu_torch.formats.ell, "
+        "nsparse_tpu_torch.formats.dia, nsparse_tpu_torch.formats.bsr, "
+        "nsparse_tpu_torch.formats.coo, "
+        "nsparse_tpu_torch.ops.kernels.flat_gather, "
+        "nsparse_tpu_torch.ops.kernels.gather_tiles, "
+        "nsparse_tpu_torch.ops.kernels.dia, "
+        "nsparse_tpu_torch.ops.kernels.spmv_bsr; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('nsparse_tpu.') or m == 'nsparse_tpu']; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -37,6 +45,35 @@ def test_import_pulls_in_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_names_no_jax_package_path():
+    """No file of the port imports the JAX package or builds from its
+    directory (its C++ sources are the port's own copies)."""
+    import re
+
+    pkg = os.path.join(REPO, "nsparse_tpu_torch")
+    imports = re.compile(r"^\s*(from|import)\s+nsparse_tpu(\.|\s|$)", re.M)
+    path_literal = re.compile(r"[\"']nsparse_tpu[\"'/]")
+    seen = 0
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith((".py", ".cu", ".cuh", ".cpp")):
+                continue
+            with open(os.path.join(root, f)) as fh:
+                text = fh.read()
+            seen += 1
+            assert not imports.search(text), f
+            assert not path_literal.search(text), f
+    assert seen > 20
+    for src in ("planner.cpp", "mmio.cpp"):
+        with open(os.path.join(pkg, "native", src), "rb") as a, \
+                open(os.path.join(REPO, "nsparse_tpu", "native", src),
+                     "rb") as b:
+            assert a.read() == b.read(), src
+    from nsparse_tpu_torch.native import _SRC_DIR
+
+    assert os.path.samefile(_SRC_DIR, os.path.join(pkg, "native"))
 
 
 def _same_csr(j, t):

@@ -243,7 +243,7 @@ def test_cli_spgemm_host_planner(capsys):
     from nsparse_tpu_torch.cli import main
 
     rc = main(["--precision", "double", "spgemm", "gen:rmat:8:4",
-               "--planner", "host"])
+               "--planner", "host", "--device", "cpu"])
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "intermediate products" in out and out.rstrip().endswith("pass")
