@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SpGEMM and SpMV paths once on one CUDA card.
+"""Drive the PyTorch port's SpGEMM, SpMV and block SpGEMM paths once on one
+CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi) and the toolchain;
-  2. build the eight Hopper kernels from ``nsparse_tpu_torch/csrc``;
+  2. build the ten Hopper kernels from ``nsparse_tpu_torch/csrc``;
   3. SpGEMM: C = A @ A on R-MAT-14 (edge factor 8, seed 1, float32) —
-     ``spgemm_plan`` on the host, then ``spgemm_numeric`` on cuda:0; C is
-     checked against the scipy oracle with the |A||B| bound, then re-run
-     with new values on the same plan, in float32 and in float64; the
-     numeric phase timed with the kernels and with the plain versions,
-     and under torch.profiler;
+     ``choose_spgemm_path`` must answer esc; ``spgemm_plan`` on the host,
+     then ``spgemm_numeric`` on cuda:0; C is checked against the scipy
+     oracle with the |A||B| bound, then re-run with new values on the same
+     plan, in float32 and in float64; the numeric phase timed with the
+     kernels, with the plain versions and as one cuSPARSE CSR SpGEMM, and
+     under torch.profiler;
   4. SpMV, float32 unless marked, each path checked against scipy (rtol
      1e-5, or 1e-8 in float64, scaled by |A||x|):
        irregular  R-MAT-20 (edge factor 16, seed 2), ELL (min_width 2,
@@ -23,7 +25,20 @@ Phases (any failure exits non-zero before the final line):
        f64        DIA and x-shuffle ELL again in float64;
        tuner      ``autotune_spmv`` in model mode on the stencil;
      the x-shuffle ELL SpMV under torch.profiler;
-  5. each kernel against its plain PyTorch version on the card, on the
+  5. block SpGEMM, C = A @ A through dense 256 x 256 tiles (K9):
+       FEM f32    the FEM matrix above: ``choose_spgemm_path`` must answer
+                  bsr; ``plan_spgemm_bsr`` on the host, ``spgemm_bsr`` on
+                  cuda:0, then new values through ``spgemm_bsr_numeric``
+                  (re-blockified on the card by K5, K1 and K6); each C
+                  checked against scipy; with TF32 allowed, the plain tile
+                  products held to full float32 against K9; under
+                  torch.profiler;
+       FEM f64    the bench's 512-node FEM matrix in float64;
+     each timed with the kernels, the plain versions and cuSPARSE CSR;
+  6. windowed gather (K10) on 262,144 rows for windows 32, 128 and 1024,
+     equal to its plain version and to ``torch.gather`` bit for bit (no
+     path of the library calls it: it stands alone, as on the TPU);
+  7. each kernel against its plain PyTorch version on the card, on the
      inputs its paths gave it, timed with CUDA events beside the plain
      version, one PyTorch call that computes the same function (where
      there is one) and the least time the card could take (its bound).
@@ -49,9 +64,19 @@ TRIALS = 20
 RMAT_SCALE, RMAT_EF, RMAT_SEED = 20, 16, 2
 STENCIL = 2048
 FEM = dict(n_nodes=4096, dof=16, neighbors=6, bandwidth=24, seed=3)
+FEM_F64 = dict(FEM, n_nodes=512)  # the bench's FEM stage (bench.py:501)
+# structural counts of the block products at bs 256 (device independent):
+# (A tiles, pairs, C tiles, intermediate products P, nnz(C))
+FEM_BSR = (1274, 6350, 2284, 2_395_136_000, 66_215_936)
+FEM_F64_BSR = (None, 750, 268, None, 8_004_096)
+WG_ROWS, WG_WINDOWS = 262_144, (32, 128, 1024)
 # peak rates outside the tensor cores (NVIDIA H100 SXM data sheet), for
 # the operation bound of the two SpMV kernels
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
+# peak rates for dense tile products at full precision (the same data
+# sheet): float32 outside the tensor cores, float64 on them (DMMA), for
+# the operation bound of K9
+TILE_PEAK_FLOPS = {4: 67e12, 8: 67e12}
 
 # name: (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -71,9 +96,31 @@ KERNELS = {
                  "nsparse_tpu/ops/kernels/dia_pallas.py:60"),
     "spmv_bsr": ("cuda", "nsparse_tpu_torch/csrc/spmv_bsr.cu",
                  "nsparse_tpu/ops/kernels/spmv_pallas.py:70"),
+    "spgemm_bsr_blocks": ("cuda", "nsparse_tpu_torch/csrc/spgemm_bsr.cu",
+                          "nsparse_tpu/ops/spgemm_bsr.py:311"),
+    "windowed_gather": ("cuda", "nsparse_tpu_torch/csrc/windowed_gather.cu",
+                        "nsparse_tpu/ops/kernels/gather_pallas.py:452"),
+}
+# how each kernel is held against its plain version
+TOLERANCE = {
+    "spmv_dia": "rtol 1e-6 (f32) / 1e-12 (f64) of |A||x|",
+    "spmv_bsr": "rtol 1e-6 (f32) / 1e-12 (f64) of |A||x|",
+    "spgemm_bsr_blocks": "rtol 1e-5 (f32) / 1e-8 (f64) of |A_tile||B_tile|",
 }
 SPGEMM_FIELDS = {"gather": "gather", "expand": "expand",
                  "fused": "fused_class", "runcopy": "runcopy"}
+
+
+def host_timed(what, fn):
+    """``fn()``, printing its host time."""
+    t0 = time.perf_counter()
+    out = fn()
+    print(f"host: {what} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def fmt_ms(v) -> str:
+    return "null" if v is None else f"{v:.4f}"
 
 
 def fail(msg: str) -> None:
@@ -133,6 +180,10 @@ def profile_calls(torch, fn, what: str, calls: int = 10) -> None:
     print(f"profile ({calls} {what} calls, profiler on): device busy "
           f"{busy_ms:.4f} ms per call of {wall_ms:.4f} ms wall "
           f"({100 * busy_ms / wall_ms:.1f}%), {n_ops:g} device ops per call")
+    if any(n % calls for _, n in by_name.values()):
+        print("  (a count per call that is not whole: the profiler dropped "
+              "device events, so busy time and shares cover only those it "
+              "kept)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
         print(f"  {100 * us / calls / 1e3 / busy_ms:5.1f}%  "
               f"{us / calls / 1e3:.4f} ms  {n / calls:g}/call  {name}")
@@ -145,8 +196,8 @@ class Smoke:
     def __init__(self, torch, card: str):
         import nsparse_tpu_torch as nt
         from nsparse_tpu_torch.ops.kernels import (
-            cuda_lib, dia, flat_gather, gather_tiles, piecewise, runcopy,
-            shuffle, spmv_bsr, window_fused)
+            bsr_blocks, cuda_lib, dia, flat_gather, gather_tiles, piecewise,
+            runcopy, shuffle, spmv_bsr, window_fused)
         from nsparse_tpu_torch.utils.roofline import chip_specs
         from nsparse_tpu_torch.utils.timing import time_cuda
 
@@ -162,6 +213,8 @@ class Smoke:
             "gather_subset": gather_tiles.gather_subset,
             "scatter_tiles": gather_tiles.scatter_tiles,
             "spmv_dia": dia.spmv_dia, "spmv_bsr": spmv_bsr.spmv_bsr,
+            "spgemm_bsr_blocks": bsr_blocks.spgemm_bsr_blocks,
+            "windowed_gather": gather_tiles.windowed_gather,
         }
         self.plain = {
             "gather": shuffle.gather_plain,
@@ -173,14 +226,19 @@ class Smoke:
             "spmv_dia": (lambda vals, offs, x, m, off_t=None:
                          dia.spmv_dia_plain(vals, offs, x, m)),
             "spmv_bsr": spmv_bsr.spmv_bsr_plain,
+            "spgemm_bsr_blocks": bsr_blocks.spgemm_bsr_blocks_plain,
+            "windowed_gather": gather_tiles.windowed_gather_plain,
         }
-        # where the SpMV path looks each wrapper up (module, attribute)
+        # where the SpMV and block SpGEMM paths look each wrapper up
+        # (module, attribute)
         self.sites = {
             "gather_subset": [(flat_gather, "gather_subset")],
             "scatter_tiles": [(flat_gather, "scatter_tiles")],
             "gather": [(flat_gather, "gather"), (shuffle, "gather")],
             "spmv_dia": [(dia, "spmv_dia")],
             "spmv_bsr": [(spmv_bsr, "spmv_bsr")],
+            "spgemm_bsr_blocks": [(bsr_blocks, "spgemm_bsr_blocks")],
+            "windowed_gather": [(gather_tiles, "windowed_gather")],
         }
         self.calls = {k: [] for k in KERNELS}     # [(path, args)]
         self.launches = {k: 0 for k in KERNELS}
@@ -209,7 +267,7 @@ class Smoke:
 
     @contextlib.contextmanager
     def patched(self, make):
-        """Replace each SpMV wrapper where the path looks it up by
+        """Replace each wrapper where its path looks it up by
         ``make(kernel name, wrapper)``."""
         saved = []
         for k, sites in self.sites.items():
@@ -223,7 +281,7 @@ class Smoke:
                 setattr(mod, attr, fn)
 
     def record(self, fn, path: str):
-        """Run ``fn`` once, keeping every SpMV kernel call's inputs (the
+        """Run ``fn`` once, keeping every patched kernel call's inputs (the
         in-place outputs as they were before the call)."""
         clone_arg = {"gather_subset": 4, "scatter_tiles": 0}
 
@@ -245,8 +303,19 @@ class Smoke:
         self.torch.cuda.synchronize()
 
     def plain_mode(self):
-        """Every SpMV kernel replaced by its plain version."""
+        """Every patched kernel replaced by its plain version."""
         return self.patched(lambda k, w: self.plain[k])
+
+    def turns(self, fn):
+        """Device ms of ``fn`` with the kernels and with their plain
+        versions, in the order plain, kernels, kernels, plain."""
+        t = {"kernels": [], "plain": []}
+        for mode in ("plain", "kernels", "kernels", "plain"):
+            ctx = self.plain_mode() if mode == "plain" \
+                else contextlib.nullcontext()
+            with ctx:
+                t[mode].append(self.time_cuda(fn, trials=TRIALS))
+        return t
 
     # -- the SpMV paths -----------------------------------------------------
 
@@ -266,14 +335,7 @@ class Smoke:
         if not ok or not torch.isfinite(y).all():
             fail(f"{path}: {nf} entries of y disagree with scipy")
         self.record(lambda: nt.spmv(fmt, x_d), path)
-
-        t = {"kernels": [], "plain": []}
-        for mode in ("plain", "kernels", "kernels", "plain"):
-            ctx = self.plain_mode() if mode == "plain" \
-                else contextlib.nullcontext()
-            with ctx:
-                t[mode].append(self.time_cuda(lambda: nt.spmv(fmt, x_d),
-                                              trials=TRIALS))
+        t = self.turns(lambda: nt.spmv(fmt, x_d))
         a_d = a.to(self.dev)
         csr = torch.sparse_csr_tensor(a_d.rpt.long(), a_d.col.long(),
                                       a_d.val, size=a.shape)
@@ -313,7 +375,14 @@ class Smoke:
     def tolerance(self, k, args):
         """None for exact kernels; else the per-entry bound rtol * |A||x|
         for the two SpMV kernels, whose sums may differ from the plain
-        version by FMA contraction (K7) and summation order (K8)."""
+        version by FMA contraction (K7) and summation order (K8), and
+        rtol * |A_tile||B_tile| for the tile products (K9: summation
+        order)."""
+        if k == "spgemm_bsr_blocks":
+            a, b, *rest = args
+            scale = self.plain[k](a.abs(), b.abs(), *rest)
+            return (1e-5 if scale.dtype == self.torch.float32 else 1e-8) \
+                * scale
         if k == "spmv_dia":
             vals, offs, x, m = args[:4]
             scale = self.plain[k](vals.abs(), offs, x.abs(), m)
@@ -328,7 +397,7 @@ class Smoke:
     def bound_ms(self, k, args, out):
         """The least time of one call: the larger of its bytes (each input
         read once, each output written once) over device memory bandwidth
-        and, for K7/K8, its operations over the peak rate.  A gather (K1,
+        and, for K7/K8/K9, its operations over the peak rate.  A gather (K1,
         K5) reads only the source values its valid indices name, each
         once, and K5 reads ``other`` only where a slot gathers."""
         torch = self.torch
@@ -356,6 +425,22 @@ class Smoke:
         elif k == "scatter_tiles":
             dst, ids, vals, _ = args
             nbytes = 2 * vals.numel() * vals.element_size() + ids.numel() * 4
+        elif k == "spgemm_bsr_blocks":
+            # two tiles per pair and the C tiles once, the pair tables
+            a, _, pair_a, _, _, start = args
+            n_pairs, bs = pair_a.numel(), a.shape[-1]
+            nbytes = (2 * n_pairs + out.shape[0]) * bs * bs \
+                * a.element_size() + 4 * (2 * n_pairs + start.numel())
+            ops = 2.0 * n_pairs * bs ** 3
+        elif k == "windowed_gather":
+            # the indices, the outputs and each window value they name
+            win, idx, window = args
+            j = idx.long()
+            valid = (j >= 0) & (j < window)
+            rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+            reads = int(torch.unique((rows * window + j)[valid]).numel())
+            nbytes = idx.numel() * 4 + (reads + out.numel()) \
+                * win.element_size()
         else:
             seen, nbytes = set(), 0
 
@@ -380,7 +465,8 @@ class Smoke:
             elif k == "spmv_bsr":
                 ops = 2.0 * args[0].data.numel()
         t_bytes = nbytes / self.bw * 1e3
-        t_ops = ops / PEAK_FLOPS[out.element_size()] * 1e3
+        peak = TILE_PEAK_FLOPS if k == "spgemm_bsr_blocks" else PEAK_FLOPS
+        t_ops = ops / peak[out.element_size()] * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
@@ -399,6 +485,10 @@ class Smoke:
             il = idx.view(-1, unit)[ids.long()].reshape(-1).long().clamp(
                 0, max(src.numel() - 1, 0))
             return lambda: src[il]
+        if k == "windowed_gather":
+            win, idx, _ = args
+            il = idx.long()
+            return lambda: torch.gather(win, 1, il)
         if k == "scatter_tiles":
             dst, ids, vals, tile = args
             d2, il, v2 = dst.clone().view(-1, tile), ids.long(), \
@@ -471,12 +561,10 @@ class Smoke:
         """Per kernel: a line per path and one aggregate row (sums over
         every path the kernel ran on) for the JSON table."""
         table = []
-        fmt = lambda v: "null" if v is None else f"{v:.4f}"  # noqa: E731
         for k, (route, src, replaces) in KERNELS.items():
             if not self.calls[k]:
                 fail(f"{k}: no recorded call on any path")
-            tol_txt = "exact" if self.tolerance(k, self.calls[k][0][1]) \
-                is None else "rtol 1e-6 (f32) / 1e-12 (f64) of |A||x|"
+            tol_txt = TOLERANCE.get(k, "exact")
             tot = dict(err=0.0, bound=0.0, by=set(), ms=0.0, plain=0.0,
                        lib=0.0)
             for path in dict.fromkeys(p for p, _ in self.calls[k]):
@@ -486,7 +574,7 @@ class Smoke:
                 print(f"  {k} on {path}: {len(calls)} call(s)  launches "
                       f"{self.path_launches[path].get(k, 0)}  kernel "
                       f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-                      f"{fmt(lib_ms)} ms  bound {bound:.4f} ms "
+                      f"{fmt_ms(lib_ms)} ms  bound {bound:.4f} ms "
                       f"({'/'.join(sorted(by))})  max_abs_err {err}",
                       flush=True)
                 tot["err"] = max(tot["err"], err)
@@ -499,7 +587,7 @@ class Smoke:
             print(f"{k}: {len(self.calls[k])} call(s)  launches "
                   f"{self.launches[k]}  max_abs_err {tot['err']} (tolerance: "
                   f"{tol_txt})  kernel {tot['ms']:.4f} ms  plain "
-                  f"{tot['plain']:.4f} ms  library {fmt(tot['lib'])} ms  "
+                  f"{tot['plain']:.4f} ms  library {fmt_ms(tot['lib'])} ms  "
                   f"bound {tot['bound']:.4f} ms  [{self.name}, {self.card}]",
                   flush=True)
             table.append(dict(
@@ -511,14 +599,37 @@ class Smoke:
         return table
 
 
+def cusparse_spgemm_ms(s: Smoke, a, what: str):
+    """Device ms of one cuSPARSE CSR SpGEMM C = A @ A
+    (``torch.sparse_csr_tensor @ torch.sparse_csr_tensor``, the
+    reference's ``csrgemm`` role) on the card, or None with the error
+    printed when the library call fails."""
+    torch = s.torch
+    a_d = a.to(s.dev)
+    try:
+        csr = torch.sparse_csr_tensor(a_d.rpt, a_d.col[: a.nnz],
+                                      a_d.val[: a.nnz], size=a.shape)
+        return s.time_cuda(lambda: csr @ csr, trials=5)
+    except RuntimeError as e:
+        print(f"{what}: cuSPARSE CSR SpGEMM failed ({e}); library ms null",
+              flush=True)
+        torch.cuda.empty_cache()
+        return None
+
+
 def spgemm_phase(s: Smoke) -> None:
-    """C = A @ A on R-MAT-14: checks, timings and profile (unchanged
-    from the first slice), its kernel calls added to the record."""
+    """C = A @ A on R-MAT-14: checks, timings and profile, its kernel
+    calls added to the record."""
     torch, nt = s.torch, s.nt
     from nsparse_tpu_torch.ops.spgemm_window import (
         KERNEL_OPS, PLAIN_OPS, spgemm_numeric_window)
 
     a = nt.rmat_csr(SCALE, EDGE_FACTOR, dtype=np.float32, seed=SEED)
+    path = nt.choose_spgemm_path(a, a)
+    print(f"R-MAT-{SCALE}: choose_spgemm_path -> {path} (block stats "
+          f"{nt.block_stats(a, a)})", flush=True)
+    if path != "esc":
+        fail(f"choose_spgemm_path chose {path} on R-MAT-{SCALE}, not esc")
     t0 = time.perf_counter()
     plan = nt.spgemm_plan(a, a)
     print(f"R-MAT-{SCALE} C = A^2 f32: nnz(A) {a.nnz}  intermediate products "
@@ -582,24 +693,33 @@ def spgemm_phase(s: Smoke) -> None:
             lambda: spgemm_numeric_window(plan_d, a_d, a_d, ops=ops),
             trials=TRIALS))
     ms_k, ms_p = float(np.mean(times["kernels"])), float(np.mean(times["plain"]))
+    lib_ms = cusparse_spgemm_ms(s, a, "spgemm")
     print(f"numeric phase [{s.name}, {s.card}]: kernels {ms_k:.4f} ms "
           f"({times['kernels']})  plain {ms_p:.4f} ms ({times['plain']})  "
+          f"cuSPARSE CSR A @ A {fmt_ms(lib_ms)} ms  "
           f"{2 * plan.n_products / (ms_k * 1e-3) / 1e9:.2f} GFLOPS")
     profile_calls(torch, lambda: spgemm_numeric_window(plan_d, a_d, a_d),
                   "numeric")
 
 
-def ell_kernels(ell):
-    """The kernels an ELL SpMV must launch, from its gather plans: K5 for
-    class subsets, K1 and K6 for fallback tiles, K1 for the x-shuffle."""
-    plans = [ell.pos_gp]
-    plans += [ell.uniq_cols_gp, ell.xfill_gp] if ell.xsh is not None \
-        else list(ell.cols_gp)
+def gather_kernels(plans) -> set:
+    """The kernels ``flat_gather`` must launch for these plans: K5 for
+    class subsets, K1 and K6 for fallback tiles."""
     need = set()
     if any(i.numel() for p in plans for i in p.ids):
         need.add("gather_subset")
     if any(p.fb_ids.numel() for p in plans):
         need |= {"gather", "scatter_tiles"}
+    return need
+
+
+def ell_kernels(ell):
+    """The kernels an ELL SpMV must launch: its gather plans', and K1 for
+    the x-shuffle."""
+    plans = [ell.pos_gp]
+    plans += [ell.uniq_cols_gp, ell.xfill_gp] if ell.xsh is not None \
+        else list(ell.cols_gp)
+    need = gather_kernels(plans)
     if ell.xsh is not None:
         need.add("gather")
     return sorted(need)
@@ -613,22 +733,16 @@ def spmv_phases(s: Smoke) -> None:
         return torch.from_numpy(
             np.random.default_rng(0).standard_normal(n).astype(dtype))
 
-    def timed(what, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        print(f"host: {what} {time.perf_counter() - t0:.1f} s", flush=True)
-        return out
-
     # irregular: Graph500-style R-MAT, the bench's ELL geometry
-    a = timed(f"generate R-MAT-{RMAT_SCALE}", lambda: nt.rmat_csr(
+    a = host_timed(f"generate R-MAT-{RMAT_SCALE}", lambda: nt.rmat_csr(
         RMAT_SCALE, RMAT_EF, dtype=np.float32, seed=RMAT_SEED))
     deg = a.rpt.diff()
     print(f"R-MAT-{RMAT_SCALE}: {a.shape[0]} rows, nnz {a.nnz}, max degree "
           f"{int(deg.max())}, empty rows {int((deg == 0).sum())}")
     geom = dict(min_width=2, max_slabs=10, sigma=1024)
-    ell_x = timed("ELL with x-shuffle", lambda: nt.ELL.from_csr(
+    ell_x = host_timed("ELL with x-shuffle", lambda: nt.ELL.from_csr(
         a, xshuffle=True, **geom))
-    ell_d = timed("ELL direct", lambda: nt.ELL.from_csr(
+    ell_d = host_timed("ELL direct", lambda: nt.ELL.from_csr(
         a, xshuffle=False, **geom))
     fb = sum(g.class_fracs["fallback"] * v.numel()
              for g, v in zip(ell_d.cols_gp, ell_d.vals)) / ell_d.padded_nnz
@@ -637,7 +751,7 @@ def spmv_phases(s: Smoke) -> None:
           f"{ell_x.uniq_cols_gp.class_fracs}, fill "
           f"{ell_x.xfill_gp.class_fracs}, pos {ell_x.pos_gp.class_fracs}")
     x = x_for(a.shape[1], np.float32)
-    ell_x_d = timed("ELL x-shuffle to the card", lambda: ell_x.to(s.dev))
+    ell_x_d = host_timed("ELL x-shuffle to the card", lambda: ell_x.to(s.dev))
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-xshuffle", a, ell_x_d, x,
                 ell_kernels(ell_x), np.float32)
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-direct", a, ell_d.to(s.dev), x,
@@ -655,13 +769,13 @@ def spmv_phases(s: Smoke) -> None:
     del ell_x, ell_x_d, ell64, a64, a
 
     # banded: 5-point stencil as DIA and as row-ordered ELL
-    a = timed(f"generate stencil {STENCIL}x{STENCIL}",
+    a = host_timed(f"generate stencil {STENCIL}x{STENCIL}",
               lambda: nt.stencil_csr(STENCIL, STENCIL, dtype=np.float32))
-    dia = timed("DIA", lambda: nt.DIA.from_csr(a))
+    dia = host_timed("DIA", lambda: nt.DIA.from_csr(a))
     print(f"stencil: {a.shape[0]} rows, nnz {a.nnz}, offsets {dia.offsets}")
     x = x_for(a.shape[1], np.float32)
     s.spmv_path("stencil-dia", a, dia.to(s.dev), x, ["spmv_dia"], np.float32)
-    ell = timed("ELL sigma 0", lambda: nt.ELL.from_csr(a, sigma=0))
+    ell = host_timed("ELL sigma 0", lambda: nt.ELL.from_csr(a, sigma=0))
     s.spmv_path("stencil-ell-sigma0", a, ell.to(s.dev), x, ell_kernels(ell),
                 np.float32)
     del ell
@@ -674,7 +788,7 @@ def spmv_phases(s: Smoke) -> None:
     # banded candidate list (bench.py's banded stage)
     cands = [Plan(format="dia"), Plan(format="ell", sigma=0),
              Plan(format="csr")]
-    fmt, plan = timed("autotune (model mode)", lambda: nt.autotune_spmv(
+    fmt, plan = host_timed("autotune (model mode)", lambda: nt.autotune_spmv(
         a, x, candidates=cands, measure=False, device=s.dev))
     print(f"tuner chose {plan.format} ({plan.memory_bytes} B)")
     y = s.counted(lambda: nt.spmv(fmt, x.to(s.dev)),
@@ -687,10 +801,10 @@ def spmv_phases(s: Smoke) -> None:
     del a, a64, dia, fmt
 
     # FEM: dense 16-dof blocks as (128, 128) BSR tiles
-    a = timed("generate FEM", lambda: nt.fem_block_csr(
+    a = host_timed("generate FEM", lambda: nt.fem_block_csr(
         FEM["n_nodes"], dof=FEM["dof"], neighbors=FEM["neighbors"],
         bandwidth=FEM["bandwidth"], dtype=np.float32, seed=FEM["seed"]))
-    bsr = timed("BSR (128, 128)", lambda: nt.BSR.from_csr(a, (128, 128)))
+    bsr = host_timed("BSR (128, 128)", lambda: nt.BSR.from_csr(a, (128, 128)))
     print(f"FEM: {a.shape[0]} rows, nnz {a.nnz}, {bsr.nblocks} tiles, fill "
           f"{bsr.fill_ratio:.2f}, {bsr.data.numel() * 4} B of tiles")
     bsr_d = bsr.to(s.dev)
@@ -741,6 +855,166 @@ def precision_check(s: Smoke, bsr_d) -> None:
         fail("BSR products lost full float32 precision under TF32")
 
 
+def bsr_path(s: Smoke, path: str, a, plan_d, fn, expect) -> None:
+    """One block SpGEMM path: the counted run of ``fn`` (C as CSR), the
+    scipy check, a recorded run, and timings with the kernels, with the
+    plain versions and as one cuSPARSE CSR SpGEMM."""
+    torch, nt = s.torch, s.nt
+    c = s.counted(fn, expect, path)
+    ok = nt.check_spgemm_answer(c, nt.spgemm_oracle(a, a), verbose=True,
+                                abs_ref=nt.spgemm_abs_oracle(a, a))
+    vals = c.val[: c.nnz]
+    finite = bool(torch.isfinite(vals).all())
+    rtol = 1e-5 if a.val.dtype == torch.float32 else 1e-8
+    print(f"{path}: C vs scipy (rtol {rtol:g}, |A||B| bound): "
+          f"{'pass' if ok else 'FAIL'}  finite {finite}", flush=True)
+    if not ok or not finite:
+        fail(f"{path}: C does not match the scipy oracle")
+    s.record(fn, path)
+    t = s.turns(fn)
+    lib_ms = cusparse_spgemm_ms(s, a, path)
+    ms = float(np.mean(t["kernels"]))
+    tile_flops = 2 * plan_d.n_pairs * plan_d.bs ** 3
+    op_bound = tile_flops / TILE_PEAK_FLOPS[a.val.element_size()] * 1e3
+    print(f"{path} [{s.name}, {s.card}]: kernels {ms:.4f} ms "
+          f"({t['kernels']})  plain {np.mean(t['plain']):.4f} ms "
+          f"({t['plain']})  cuSPARSE CSR A @ A {fmt_ms(lib_ms)} ms  "
+          f"{plan_d.flops / (ms * 1e-3) / 1e9:.2f} GFLOPS useful  "
+          f"{tile_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of tile products "
+          f"(operation bound of the tile products {op_bound:.4f} ms)",
+          flush=True)
+
+
+def bsr_spgemm_phases(s: Smoke) -> None:
+    """C = A @ A through dense tiles: FEM f32 (``spgemm_bsr``, then a
+    value re-run through ``spgemm_bsr_numeric``), the TF32 check and a
+    profile, then the bench's FEM in f64."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops.spgemm_bsr import tile_products
+
+    def plan_for(what, cfg, dtype, counts):
+        a = host_timed(f"generate {what}", lambda: nt.fem_block_csr(
+            cfg["n_nodes"], dof=cfg["dof"], neighbors=cfg["neighbors"],
+            bandwidth=cfg["bandwidth"], dtype=dtype, seed=cfg["seed"]))
+        path = nt.choose_spgemm_path(a, a)
+        print(f"{what}: {a.shape[0]} rows, nnz {a.nnz}; choose_spgemm_path "
+              f"-> {path} (block stats {nt.block_stats(a, a)})", flush=True)
+        if path != "bsr":
+            fail(f"choose_spgemm_path chose {path} on {what}, not bsr")
+        plan = host_timed(f"plan_spgemm_bsr {what}",
+                          lambda: nt.plan_spgemm_bsr(a, a))
+        got = (len(plan.a_blocks) - 1, plan.n_pairs, plan.n_c_blocks,
+               plan.flops // 2, plan.c_nnz)
+        tile_mb = plan.bs ** 2 * plan.a_blocks.element_size() / 1e6
+        print(f"{what}: A tiles {got[0]} ({got[0] * tile_mb:.0f} MB), block "
+              f"pairs {got[1]}, C tiles {got[2]} ({got[2] * tile_mb:.0f} "
+              f"MB), products P {got[3]}, nnz(C) {got[4]}, fill "
+              f"{plan.fill:.2f}, "
+              f"{2 * got[1] * plan.bs ** 3 / 1e9:.2f} GFLOP of tile "
+              f"products; fill gather {plan.a_fill_gp.class_fracs}",
+              flush=True)
+        if any(w is not None and g != w for g, w in zip(got, counts)):
+            fail(f"{what}: block plan counts {got}, expected {counts}")
+        return a, plan
+
+    a, plan = plan_for("FEM f32", FEM, np.float32, FEM_BSR)
+    plan_d, a_d = plan.to(s.dev), a.to(s.dev)
+    bsr_path(s, "fem-bsr-spgemm", a, plan_d,
+             lambda: nt.spgemm_bsr(a_d, a_d, plan_d), ["spgemm_bsr_blocks"])
+
+    # new values on the same plan: re-blockified on the card
+    v2 = np.random.default_rng(FEM["seed"] + 1).standard_normal(a.nnz)
+    a2 = a.with_values(torch.from_numpy(v2.astype(np.float32)))
+    a2_d = a2.to(s.dev)
+
+    def rerun():
+        blocks = nt.spgemm_bsr_numeric(plan_d, a2_d, a2_d)
+        return nt.CSR(rpt=plan_d.c_rpt, col=plan_d.c_col,
+                      val=blocks.reshape(-1).index_select(0, plan_d.c_slot),
+                      shape=plan_d.shape, nnz=plan_d.c_nnz)
+
+    expect = ["spgemm_bsr_blocks", *sorted(gather_kernels(
+        [plan.a_fill_gp, plan.b_fill_gp]))]
+    bsr_path(s, "fem-bsr-rerun", a2, plan_d, rerun, expect)
+    bsr_precision_check(s, plan_d, tile_products)
+    profile_calls(torch, lambda: nt.spgemm_bsr(a_d, a_d, plan_d),
+                  "FEM block SpGEMM f32")
+    del a2_d
+
+    a64, plan64 = plan_for("FEM-512 f64", FEM_F64, np.float64, FEM_F64_BSR)
+    p64_d, a64_d = plan64.to(s.dev), a64.to(s.dev)
+    bsr_path(s, "fem512-bsr-spgemm-f64", a64, p64_d,
+             lambda: nt.spgemm_bsr(a64_d, a64_d, p64_d),
+             ["spgemm_bsr_blocks"])
+
+
+def bsr_precision_check(s: Smoke, plan_d, tile_products) -> None:
+    """With TF32 turned on by the caller, the plain tile products must
+    still compute in full float32: held against K9 at 1e-6 of
+    |A_tile||B_tile|.  The unguarded batched product is shown beside it,
+    to show what TF32 would have cost."""
+    torch = s.torch
+    from nsparse_tpu_torch.ops.kernels import bsr_blocks
+
+    args = (plan_d.a_blocks, plan_d.b_blocks, plan_d.pair_a, plan_d.pair_b,
+            plan_d.pair_c, plan_d.c_pair_start)
+    want = tile_products(plan_d)
+    scale = bsr_blocks.spgemm_bsr_blocks_plain(
+        args[0].abs(), args[1].abs(), *args[2:]).clamp(min=1e-30)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        plain = bsr_blocks.spgemm_bsr_blocks_plain(*args)
+        kept = torch.backends.cuda.matmul.allow_tf32
+        raw = torch.zeros_like(want).index_add_(
+            0, plan_d.pair_c.long(),
+            torch.bmm(args[0][plan_d.pair_a.long()],
+                      args[1][plan_d.pair_b.long()]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    rel = {name: float(((y - want).abs() / scale).max())
+           for name, y in (("plain tile products", plain),
+                           ("unguarded bmm", raw))}
+    ok = rel["plain tile products"] <= 1e-6 and kept
+    print(f"fem-bsr-spgemm with TF32 allowed: max |err| / (|A||B|) vs K9 "
+          f"{rel}; caller's setting kept {kept}: {'pass' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("block tile products lost full float32 precision under TF32")
+
+
+def windowed_gather_phase(s: Smoke) -> None:
+    """K10 alone, at WG_ROWS rows per window width: equal to its plain
+    version and to torch.gather bit for bit, timed both ways."""
+    torch = s.torch
+    from nsparse_tpu_torch.ops.kernels import gather_tiles
+
+    for w in WG_WINDOWS:
+        rng = np.random.default_rng(w)
+        win = torch.from_numpy(rng.standard_normal(
+            (WG_ROWS, max(w, 128)), dtype=np.float32)).to(s.dev)
+        idx = torch.from_numpy(rng.integers(
+            0, w, (WG_ROWS, 128)).astype(np.int32)).to(s.dev)
+        path = f"windowed-gather-w{w}"
+
+        def fn():
+            return gather_tiles.windowed_gather(win, idx, w)
+
+        out = s.counted(fn, ["windowed_gather"], path)
+        ok = torch.equal(out, gather_tiles.windowed_gather_plain(
+            win, idx, w)) and torch.equal(out, torch.gather(
+                win, 1, idx.long()))
+        print(f"{path}: equal to its plain version and torch.gather: "
+              f"{'pass' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{path}: K10 differs from its plain version")
+        s.record(fn, path)
+        t = s.turns(fn)
+        print(f"{path} [{s.name}, {s.card}]: kernels "
+              f"{np.mean(t['kernels']):.4f} ms ({t['kernels']})  plain "
+              f"{np.mean(t['plain']):.4f} ms ({t['plain']})", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -765,8 +1039,12 @@ def main() -> None:
     print(f"kernels built: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(s.cuda_lib.NVCC_FLAGS)})", flush=True)
 
-    spgemm_phase(s)
-    spmv_phases(s)
+    for phase in (spgemm_phase, spmv_phases, bsr_spgemm_phases,
+                  windowed_gather_phase):
+        t0 = time.perf_counter()
+        phase(s)
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "
+              "host time", flush=True)
     table = s.kernel_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))

@@ -2,10 +2,12 @@
 
 The JAX package ``nsparse_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``.  Ported so far: the SpGEMM main path (the
-host symbolic plan, window layout, and the window numeric phase) and the
-SpMV path (CSR, COO, ELL, DIA and BSR formats, the semirings, the
-``spmv`` dispatch and its tuner).  Their eight kernels are hand-written
-CUDA for Hopper (``csrc/``) beside their plain PyTorch versions.
+host symbolic plan, window layout, and the window numeric phase), the
+block-sparse SpGEMM path (``spgemm_bsr``, ``spgemm(..., method="bsr" |
+"auto")``) and the SpMV path (CSR, COO, ELL, DIA and BSR formats, the
+semirings, the ``spmv`` dispatch and its tuner).  Their ten kernels are
+hand-written CUDA for Hopper (``csrc/``) beside their plain PyTorch
+versions.
 """
 
 from nsparse_tpu_torch.formats.bsr import BSR
@@ -28,6 +30,14 @@ from nsparse_tpu_torch.ops.spgemm import (
     spgemm_numeric_segsum,
     spgemm_plan,
 )
+from nsparse_tpu_torch.ops.spgemm_bsr import (
+    BsrSpgemmPlan,
+    block_stats,
+    choose_spgemm_path,
+    plan_spgemm_bsr,
+    spgemm_bsr,
+    spgemm_bsr_numeric,
+)
 from nsparse_tpu_torch.ops.spmv import spmm, spmv
 from nsparse_tpu_torch.tune.autotune import autotune_spmv
 from nsparse_tpu_torch.utils.checking import (
@@ -41,6 +51,7 @@ from nsparse_tpu_torch.utils.checking import (
 
 __all__ = [
     "BSR",
+    "BsrSpgemmPlan",
     "COO",
     "CSR",
     "DIA",
@@ -48,13 +59,18 @@ __all__ = [
     "SpgemmPlan",
     "ans_check",
     "autotune_spmv",
+    "block_stats",
     "check_spgemm_answer",
+    "choose_spgemm_path",
     "fem_block_csr",
+    "plan_spgemm_bsr",
     "random_csr",
     "read_mtx",
     "rmat_csr",
     "spgemm",
     "spgemm_abs_oracle",
+    "spgemm_bsr",
+    "spgemm_bsr_numeric",
     "spgemm_flops",
     "spgemm_numeric",
     "spgemm_numeric_segsum",

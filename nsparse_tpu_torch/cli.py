@@ -2,6 +2,7 @@
 
     python -m nsparse_tpu_torch --precision single spmv gen:stencil:2048:2048 --format dia
     python -m nsparse_tpu_torch --precision single spgemm gen:rmat:14:8 --planner host
+    python -m nsparse_tpu_torch --precision single spgemm gen:fem:4096:16 --method bsr
 
 Loads a matrix (a .mtx path, ``gen:stencil:NX:NY``, ``gen:rmat:SCALE:EF``,
 ``gen:fem:NODES:DOF`` or ``gen:random:M:N:DENSITY``), builds the format or
@@ -131,19 +132,61 @@ def cmd_spmv(args) -> int:
     return 0 if ok else 1
 
 
-def cmd_spgemm(args) -> int:
-    from nsparse_tpu_torch.ops.spgemm import spgemm_numeric, spgemm_plan
+def _check_spgemm(c, a) -> int:
     from nsparse_tpu_torch.utils.checking import (
         check_spgemm_answer,
         spgemm_abs_oracle,
         spgemm_oracle,
     )
 
+    ok = check_spgemm_answer(
+        c, spgemm_oracle(a, a), abs_ref=spgemm_abs_oracle(a, a))
+    print("pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
+def _spgemm_bsr(a, dev, trials: int) -> int:
+    """C = A @ A through dense tile products (the block path)."""
+    from nsparse_tpu_torch.ops.spgemm_bsr import (
+        plan_spgemm_bsr,
+        spgemm_bsr,
+        tile_products,
+    )
+    from nsparse_tpu_torch.utils.timing import gflops
+
+    t0 = time.perf_counter()
+    plan = plan_spgemm_bsr(a, a)
+    sym_ms = (time.perf_counter() - t0) * 1e3
+    print(f"nnz(A): {a.nnz}  block pairs: {plan.n_pairs}  "
+          f"fill: {plan.fill:.1f}x")
+    print(f"symbolic (block plan): {sym_ms:.1f} ms")
+    plan_d = plan.to(dev)
+    ms, where = _timed(lambda: tile_products(plan_d), dev, trials)
+    line = f"SpGEMM bsr [{where}]: {ms:.4f} ms"
+    if dev.type == "cuda":
+        tile_tf = gflops(2 * plan.n_pairs * plan.bs**3, ms) / 1e3
+        line += (f"  {gflops(plan.flops, ms):.2f} GFLOPS useful  "
+                 f"({tile_tf:.2f} TFLOP/s of tile products)")
+    print(line)
+    return _check_spgemm(spgemm_bsr(a.to(dev), a.to(dev), plan_d), a)
+
+
+def cmd_spgemm(args) -> int:
+    from nsparse_tpu_torch.ops.spgemm import spgemm_numeric, spgemm_plan
+    from nsparse_tpu_torch.ops.spgemm_bsr import choose_spgemm_path
+
     dtype = np.float32 if args.precision == "single" else np.float64
     dev = _device(args.device)
     a = _load(args.matrix, dtype)
     m, n = a.shape
     print(f"matrix: {args.matrix}  M={m} N={n} nnz={a.nnz}")
+
+    method = args.method
+    if method == "auto":
+        method = choose_spgemm_path(a, a)
+        print(f"method: {method} (auto)")
+    if method == "bsr":
+        return _spgemm_bsr(a, dev, args.trials)
 
     t0 = time.perf_counter()
     plan = spgemm_plan(a, a)
@@ -173,11 +216,7 @@ def cmd_spgemm(args) -> int:
                  f"{spec.name} roofline)")
     print(line)
 
-    c = spgemm_numeric(plan_d, a_d, a_d)
-    ok = check_spgemm_answer(
-        c, spgemm_oracle(a, a), abs_ref=spgemm_abs_oracle(a, a))
-    print("pass" if ok else "FAIL")
-    return 0 if ok else 1
+    return _check_spgemm(spgemm_numeric(plan_d, a_d, a_d), a)
 
 
 def main(argv=None) -> int:
@@ -211,7 +250,12 @@ def main(argv=None) -> int:
     sg.add_argument("matrix")
     sg.add_argument("--trials", type=int, default=11)
     sg.add_argument("--planner", choices=["host"], default="host",
-                    help="symbolic phase; only the host planner is ported")
+                    help="symbolic phase of the esc method; only the host "
+                         "planner is ported")
+    sg.add_argument("--method", choices=["auto", "esc", "bsr"],
+                    default="auto",
+                    help="esc (window path), bsr (dense tile products) or "
+                         "auto (the block-statistics cost model)")
     add_device(sg)
     sg.set_defaults(fn=cmd_spgemm)
     args = ap.parse_args(argv)

@@ -24,7 +24,7 @@ from nsparse_tpu_torch.buildlib import PKG_DIR, build_shared
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu",
            "gather_subset.cu", "scatter_tiles.cu", "spmv_dia.cu",
-           "spmv_bsr.cu")
+           "spmv_bsr.cu", "spgemm_bsr.cu", "windowed_gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -45,6 +45,8 @@ _SIGNATURES = {
     "nsp_scatter_tiles": [_P, _P, _I64, _P, _I64, _P],
     "nsp_spmv_dia": [_P, _I64, _P, _I32, _P, _I64, _P, _I64, _P],
     "nsp_spmv_bsr": [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P],
+    "nsp_spgemm_bsr": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P],
+    "nsp_windowed_gather": [_P, _I64, _P, _I32, _I64, _P, _P],
 }
 
 

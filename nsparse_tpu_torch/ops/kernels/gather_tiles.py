@@ -1,12 +1,14 @@
-"""Tile-subset gather and tile scatter: kernels K5 and K6.
+"""Tile-subset gather, tile scatter and windowed gather: kernels K5, K6
+and K10.
 
 Counterpart of ``nsparse_tpu/ops/kernels/gather_pallas.py``'s
-``gather_subset_window``/``gather_subset_band`` (K5 ``gather_subset``) and
-``scatter_tiles`` (K6).  The TPU kernels replace a gather the TPU lacks
-with roll-scans over a window or band; Hopper gathers in hardware, so K5
-reads each slot's source directly and one kernel serves every class (the
-class's unit size tells it how many slots a listed id covers).  Both
-kernels update their output in place, as the JAX outputs are aliased.
+``gather_subset_window``/``gather_subset_band`` (K5 ``gather_subset``),
+``scatter_tiles`` (K6) and ``windowed_gather`` (K10).  The TPU kernels
+replace a gather the TPU lacks with roll-scans over a window or band;
+Hopper gathers in hardware, so K5 reads each slot's source directly and
+one kernel serves every class (the class's unit size tells it how many
+slots a listed id covers), and K10 reads ``win[t, idx]`` directly.  K5
+and K6 update their output in place, as the JAX outputs are aliased.
 """
 
 from __future__ import annotations
@@ -112,3 +114,48 @@ def scatter_tiles(dst: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
 
 
 scatter_tiles.launches = 0
+
+
+def windowed_gather_plain(win: torch.Tensor, idx: torch.Tensor,
+                          window: int) -> torch.Tensor:
+    """Plain PyTorch version of K10."""
+    j = idx.long()
+    inside = (j >= 0) & (j < window)
+    return torch.where(inside, torch.gather(win, 1, j.clamp(0, window - 1)),
+                       0)
+
+
+def windowed_gather(win: torch.Tensor, idx: torch.Tensor,
+                    window: int) -> torch.Tensor:
+    """K10: ``out[t, l] = win[t, idx[t, l]]`` for ``win`` of shape (T,
+    max(window, 128)) and int32 ``idx`` of shape (T, 128) in
+    ``[0, window)``.  An index outside ``[0, window)`` gives 0 (it never
+    reads outside its row); any window from 1 to ``win.shape[1]`` is
+    taken (the TPU kernel needs a divisor or a multiple of 128).
+
+    CPU tensors take :func:`windowed_gather_plain`; CUDA tensors launch the
+    kernel (``csrc/windowed_gather.cu``) or raise.
+    """
+    if win.dim() != 2 or idx.dim() != 2 or idx.shape[1] != 128 \
+            or idx.shape[0] != win.shape[0]:
+        raise ValueError("windowed_gather: win must be (T, >= window) and "
+                         "idx (T, 128)")
+    if not 0 < window <= win.shape[1]:
+        raise ValueError(f"windowed_gather: window {window} outside "
+                         f"[1, {win.shape[1]}]")
+    if win.device.type == "cpu":
+        return windowed_gather_plain(win, idx, window)
+    cuda_lib.require_cuda("windowed_gather", win, idx)
+    out = torch.empty(idx.shape, dtype=win.dtype, device=win.device)
+    if idx.numel():
+        fn = cuda_lib.entry("nsp_windowed_gather", win.dtype)
+        with torch.cuda.device(win.device):
+            rc = fn(cuda_lib.ptr(win), win.shape[1], cuda_lib.ptr(idx),
+                    window, idx.shape[0], cuda_lib.ptr(out),
+                    cuda_lib.stream(win))
+        cuda_lib.check(rc, "windowed_gather")
+        windowed_gather.launches += 1
+    return out
+
+
+windowed_gather.launches = 0

@@ -1,5 +1,6 @@
 """SpGEMM C = A @ B with a reusable plan (counterpart of
-``nsparse_tpu/ops/spgemm.py``, window layout only).
+``nsparse_tpu/ops/spgemm.py``, window layout only; the block path is
+``ops/spgemm_bsr.py``, reached through ``spgemm(..., method=)``).
 
 - symbolic: ``spgemm_plan`` runs the host planner (``native/``) and builds
   the window structure (``ops/spgemm_window.py``); it is one-time work per
@@ -447,10 +448,31 @@ def spgemm_numeric_segsum(a: CSR, b: CSR) -> CSR:
     )
 
 
-def spgemm(a: CSR, b: CSR, plan: SpgemmPlan | None = None) -> CSR:
-    """C = A @ B.  Without a plan, builds one on the host and moves it to
-    the values' device; callers who re-multiply the same structure should
-    build ``spgemm_plan`` once and pass it."""
+def spgemm(a: CSR, b: CSR, plan: SpgemmPlan | None = None,
+           method: str = "esc") -> CSR:
+    """C = A @ B.
+
+    ``method``: "esc" (the window path; without a plan, builds one on the
+    host and moves it to the values' device; callers who re-multiply the
+    same structure should build ``spgemm_plan`` once and pass it), "bsr"
+    (dense tile products for block-clustered matrices, ``spgemm_bsr``), or
+    "auto" (``choose_spgemm_path`` without a plan, else "esc").
+    """
+    if method not in ("esc", "bsr", "auto"):
+        raise ValueError(f"unknown method {method!r}")
+    if method == "auto":
+        from nsparse_tpu_torch.ops.spgemm_bsr import choose_spgemm_path
+
+        method = choose_spgemm_path(a, b) if plan is None else "esc"
+    if method == "bsr":
+        if plan is not None:
+            raise ValueError(
+                "a precomputed ESC plan was supplied with method='bsr'; "
+                "use method='esc' (or 'auto') to reuse it"
+            )
+        from nsparse_tpu_torch.ops.spgemm_bsr import spgemm_bsr
+
+        return spgemm_bsr(a, b)
     if plan is None:
         plan = spgemm_plan(a, b).to(a.val.device)
     return spgemm_numeric(plan, a, b)

@@ -16,8 +16,6 @@ leaves to XLA are plain PyTorch here.  Dispatch by format in ``spmv``.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from nsparse_tpu_torch.formats.bsr import BSR
@@ -29,6 +27,7 @@ from nsparse_tpu_torch.ops.kernels import dia as dia_kernel
 from nsparse_tpu_torch.ops.kernels import spmv_bsr as bsr_kernel
 from nsparse_tpu_torch.ops.kernels.flat_gather import flat_gather
 from nsparse_tpu_torch.ops.kernels.shuffle import planned_shuffle
+from nsparse_tpu_torch.utils.device import highest_matmul_precision
 
 _INF = float("inf")
 
@@ -150,18 +149,6 @@ def spmm_csr(a: CSR, x: torch.Tensor) -> torch.Tensor:
     return _segment_reduce(prod, _row_ids(a), a.shape[0], "plus_times")
 
 
-@contextlib.contextmanager
-def _highest_matmul_precision():
-    """float32 matmuls in full precision inside the block (no TF32 on the
-    card, no bfloat16 passes on the CPU); the caller's setting after."""
-    saved = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved)
-
-
 def spmm_bsr(a: BSR, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X over dense tiles: (br, bc) @ (bc, K) products in full
     precision (TF32 and other reduced float32 matmul modes are off for
@@ -173,7 +160,7 @@ def spmm_bsr(a: BSR, x: torch.Tensor) -> torch.Tensor:
     nbc = (n + bc - 1) // bc
     xp = torch.nn.functional.pad(x.to(a.dtype), (0, 0, 0, nbc * bc - n))
     xg = xp.reshape(nbc, bc, k)[a.block_col.long()]
-    with _highest_matmul_precision():
+    with highest_matmul_precision():
         yb = torch.einsum("krc,kcj->krj", a.data, xg)
     y = torch.zeros(a.n_block_rows, br, k, dtype=a.dtype, device=x.device)
     y.index_add_(0, a.block_row.long(), yb)

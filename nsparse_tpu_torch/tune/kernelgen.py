@@ -21,3 +21,15 @@ GATHER_CLASSES = (("band", 1), ("band", 16), ("band", 128), ("win", 128),
 BAND_TILE_ROWS = 128
 WIN_TILE_ROWS = 8
 WIN_SUB = 8
+
+# block-sparse SpGEMM: tile edge and the cost model of choose_spgemm_path
+# (ns per ESC intermediate product, us per tile pair).  These are the JAX
+# CPU config's values, so the port's block plans and path choices equal the
+# JAX package's; costs measured on the H100 are later work (ROADMAP, queue
+# A: the kernelgen geometry of the bench stages).  BSR_PAIRS_PER_STEP is
+# the JAX value at which its plans pad no pair run; it is a parity value
+# only: K9 walks each C tile's run whole, so the port never pads.
+BSR_BS = 256
+BSR_PAIRS_PER_STEP = 1
+ESC_NS_PER_PRODUCT = 122.85
+BSR_US_PER_PAIR = 20.97

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -30,3 +31,25 @@ def int32_tensor(x) -> torch.Tensor:
     """A fresh int32 CPU tensor holding ``x`` (copied, so read-only numpy
     or JAX arrays are safe to pass)."""
     return torch.from_numpy(np.array(x, dtype=np.int32))
+
+
+@contextlib.contextmanager
+def highest_matmul_precision():
+    """float32 matmuls in full precision inside the block (no TF32 on the
+    card, no bfloat16 passes on the CPU); the caller's setting after.
+
+    A caller who set the legacy ``torch.backends.cuda.matmul.allow_tf32``
+    after the new API leaves a state PyTorch refuses to report; then the
+    legacy flag is what is kept and restored."""
+    try:
+        saved, legacy = torch.get_float32_matmul_precision(), None
+    except RuntimeError:
+        saved, legacy = None, torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if saved is not None:
+            torch.set_float32_matmul_precision(saved)
+        else:
+            torch.backends.cuda.matmul.allow_tf32 = legacy

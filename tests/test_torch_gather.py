@@ -1,5 +1,5 @@
 """The port's planned gather (K5 gather_subset, K6 scatter_tiles and
-flat_gather) against the JAX package.
+flat_gather) and windowed gather (K10) against the JAX package.
 
 The same numpy inputs go through the JAX function and through the port's
 wrappers on CPU tensors, which run the kernels' plain PyTorch versions.
@@ -19,6 +19,9 @@ import torch
 
 from nsparse_tpu.ops.kernels import flat_gather as jfg
 from nsparse_tpu.ops.kernels.gather_pallas import scatter_tiles as j_scatter
+from nsparse_tpu.ops.kernels.gather_pallas import (
+    windowed_gather as j_windowed_gather,
+)
 
 import nsparse_tpu_torch as nt
 from nsparse_tpu_torch.ops.kernels import flat_gather as tfg
@@ -214,3 +217,49 @@ def test_wrappers_refuse_mixed_dtypes():
         gather_tiles.gather_subset(f64, ids.repeat(1024), ids, 1024, f32)
     with pytest.raises(ValueError):
         gather_tiles.scatter_tiles(f32, ids, f64, 1024)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [32, 128, 256])
+def test_windowed_gather_matches_jax(window, dtype):
+    """K10's plain version against the JAX roll-scan kernel in interpret
+    mode, bit for bit."""
+    rng = np.random.default_rng(window)
+    t = 16
+    win = rng.standard_normal((t, max(window, 128))).astype(dtype)
+    idx = rng.integers(0, window, (t, 128)).astype(np.int32)
+    want = np.asarray(j_windowed_gather(jnp.asarray(win), jnp.asarray(idx),
+                                        window, tile_rows=8))
+    got = gather_tiles.windowed_gather(torch.from_numpy(win),
+                                       torch.from_numpy(idx), window)
+    assert got.dtype == torch.from_numpy(win).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.take_along_axis(win, idx, 1))
+
+
+def test_windowed_gather_outside_the_window_gives_zero():
+    """An index outside [0, window) gives 0 and reads nothing outside its
+    row, also in a window narrower than the row."""
+    rng = np.random.default_rng(2)
+    win = rng.standard_normal((4, 128)).astype(np.float32)
+    idx = rng.integers(-40, 80, (4, 128)).astype(np.int32)
+    got = gather_tiles.windowed_gather(torch.from_numpy(win),
+                                       torch.from_numpy(idx), 32).numpy()
+    inside = (idx >= 0) & (idx < 32)
+    want = np.where(inside, np.take_along_axis(win, np.clip(idx, 0, 31), 1),
+                    0)
+    np.testing.assert_array_equal(got, want)
+    assert (~inside).any() and inside.any()
+
+
+def test_windowed_gather_refuses_bad_inputs():
+    win = torch.zeros(4, 128)
+    idx = torch.zeros(4, 128, dtype=torch.int32)
+    with pytest.raises(ValueError, match="idx"):
+        gather_tiles.windowed_gather(win, idx[:, :64], 32)
+    with pytest.raises(ValueError, match="outside"):
+        gather_tiles.windowed_gather(win, idx, 256)
+    with pytest.raises(ValueError, match="must be on"):
+        gather_tiles.windowed_gather(win.to("meta"), idx, 32)
+    assert gather_tiles.windowed_gather.launches == 0

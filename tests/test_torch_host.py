@@ -37,7 +37,9 @@ def test_import_pulls_in_no_jax():
         "nsparse_tpu_torch.ops.kernels.flat_gather, "
         "nsparse_tpu_torch.ops.kernels.gather_tiles, "
         "nsparse_tpu_torch.ops.kernels.dia, "
-        "nsparse_tpu_torch.ops.kernels.spmv_bsr; "
+        "nsparse_tpu_torch.ops.kernels.spmv_bsr, "
+        "nsparse_tpu_torch.ops.kernels.bsr_blocks, "
+        "nsparse_tpu_torch.ops.spgemm_bsr; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('nsparse_tpu.') or m == 'nsparse_tpu']; "
         "print(bad); sys.exit(1 if bad else 0)"
