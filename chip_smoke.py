@@ -6,14 +6,21 @@ CUDA card.
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi) and the toolchain;
-  2. build the ten Hopper kernels from ``nsparse_tpu_torch/csrc``;
+  2. build the fourteen Hopper kernels from the twelve sources of
+     ``nsparse_tpu_torch/csrc``;
   3. SpGEMM: C = A @ A on R-MAT-14 (edge factor 8, seed 1, float32) —
-     ``choose_spgemm_path`` must answer esc; ``spgemm_plan`` on the host,
-     then ``spgemm_numeric`` on cuda:0; C is checked against the scipy
-     oracle with the |A||B| bound, then re-run with new values on the same
-     plan, in float32 and in float64; the numeric phase timed with the
-     kernels, with the plain versions and as one cuSPARSE CSR SpGEMM, and
-     under torch.profiler;
+     ``choose_spgemm_path`` must answer esc; ``spgemm_plan`` on the host
+     must build the v2 form (the 1,344-row bank fits the budget), then
+     ``spgemm_numeric`` on cuda:0 (K11 bank, K1 A values, K3 v2 per
+     class, the fallback pool through K2 piece mode and K12, K1, K4; no
+     run-form K2, no v1 K3); C is checked against the scipy oracle with
+     the |A||B| bound, then re-run with new values on the same plan, in
+     float32 and in float64; then the same matrix in the v1 form
+     (``FUSED_BANK_BUDGET = 0``: K2, K3 v1, K1, K4), whose C must equal
+     v2's (``torch.equal``) and scipy's; both numeric phases timed with the
+     kernels, with the plain versions and as one cuSPARSE CSR SpGEMM, the
+     v2 phase split into its four stages (delivery, classes, fallback,
+     merge), and both under torch.profiler;
   4. SpMV, float32 unless marked, each path checked against scipy (rtol
      1e-5, or 1e-8 in float64, scaled by |A||x|):
        irregular  R-MAT-20 (edge factor 16, seed 2), ELL (min_width 2,
@@ -58,8 +65,10 @@ import time
 import numpy as np
 
 SCALE, EDGE_FACTOR, SEED = 14, 8, 1
-# structural counts of the headline product (device independent)
+# structural counts of the headline product (device independent): P,
+# nnz(C), the v2 bank's rows and the fallback pool's products
 N_PRODUCTS, NNZ_C = 17_075_504, 8_935_048
+BANK_ROWS, FB_PRODUCTS = 1344, 1_029_640
 TRIALS = 20
 RMAT_SCALE, RMAT_EF, RMAT_SEED = 20, 16, 2
 STENCIL = 2048
@@ -100,6 +109,14 @@ KERNELS = {
                           "nsparse_tpu/ops/spgemm_bsr.py:311"),
     "windowed_gather": ("cuda", "nsparse_tpu_torch/csrc/windowed_gather.cu",
                         "nsparse_tpu/ops/kernels/gather_pallas.py:452"),
+    "build_bank": ("cuda", "nsparse_tpu_torch/csrc/build_bank.cu",
+                   "nsparse_tpu/ops/kernels/piecewise.py:440"),
+    "gather_tiles8": ("cuda", "nsparse_tpu_torch/csrc/gather_tiles8.cu",
+                      "nsparse_tpu/ops/kernels/gather_pallas.py:309"),
+    "expand_pieces": ("cuda", "nsparse_tpu_torch/csrc/expand.cu",
+                      "nsparse_tpu/ops/kernels/piecewise.py:492"),
+    "fused_class_v2": ("cuda", "nsparse_tpu_torch/csrc/fused_class.cu",
+                       "nsparse_tpu/ops/kernels/window_fused.py:463"),
 }
 # how each kernel is held against its plain version
 TOLERANCE = {
@@ -108,7 +125,15 @@ TOLERANCE = {
     "spgemm_bsr_blocks": "rtol 1e-5 (f32) / 1e-8 (f64) of |A_tile||B_tile|",
 }
 SPGEMM_FIELDS = {"gather": "gather", "expand": "expand",
-                 "fused": "fused_class", "runcopy": "runcopy"}
+                 "fused": "fused_class", "runcopy": "runcopy",
+                 "bank": "build_bank", "fused_v2": "fused_class_v2",
+                 "pieces": "expand_pieces", "tiles8": "gather_tiles8"}
+# the kernels each form of the window numeric phase must launch on
+# R-MAT-14 (its fallback pool is not empty); spgemm_phase checks their
+# exact counts against the plan
+SPGEMM_V2 = ["build_bank", "gather", "fused_class_v2", "expand_pieces",
+             "gather_tiles8", "runcopy"]
+SPGEMM_V1 = ["gather", "expand", "fused_class", "runcopy"]
 
 
 def host_timed(what, fn):
@@ -215,6 +240,10 @@ class Smoke:
             "spmv_dia": dia.spmv_dia, "spmv_bsr": spmv_bsr.spmv_bsr,
             "spgemm_bsr_blocks": bsr_blocks.spgemm_bsr_blocks,
             "windowed_gather": gather_tiles.windowed_gather,
+            "build_bank": piecewise.build_bank,
+            "gather_tiles8": gather_tiles.gather_tiles8,
+            "expand_pieces": piecewise.expand_pieces,
+            "fused_class_v2": window_fused.fused_class_expand,
         }
         self.plain = {
             "gather": shuffle.gather_plain,
@@ -228,7 +257,12 @@ class Smoke:
             "spmv_bsr": spmv_bsr.spmv_bsr_plain,
             "spgemm_bsr_blocks": bsr_blocks.spgemm_bsr_blocks_plain,
             "windowed_gather": gather_tiles.windowed_gather_plain,
+            "build_bank": piecewise.build_bank_plain,
+            "gather_tiles8": gather_tiles.gather_tiles8_plain,
+            "expand_pieces": piecewise.expand_pieces_plain,
+            "fused_class_v2": window_fused.fused_class_expand_plain,
         }
+        self.piecewise, self.window_fused = piecewise, window_fused
         # where the SpMV and block SpGEMM paths look each wrapper up
         # (module, attribute)
         self.sites = {
@@ -360,12 +394,14 @@ class Smoke:
     @staticmethod
     def fresh(k, args):
         """A recorded call's arguments with fresh copies of the outputs
-        that K5 and K6 update in place."""
+        that K5, K6 and K2's piece mode write in place."""
         args = list(args)
         if k == "gather_subset":
             args[4] = args[4].clone()
         elif k == "scatter_tiles":
             args[0] = args[0].clone()
+        elif k == "expand_pieces":
+            args[5] = args[5].clone()
         return args
 
     def run(self, k, fn, args):
@@ -432,6 +468,34 @@ class Smoke:
             nbytes = (2 * n_pairs + out.shape[0]) * bs * bs \
                 * a.element_size() + 4 * (2 * n_pairs + start.numel())
             ops = 2.0 * n_pairs * bs ** 3
+        elif k == "gather_tiles8":
+            # the ids, each distinct source tile they name, the output
+            src, ids = args
+            valid = (ids >= 0) & (ids < src.numel() // 1024)
+            reads = int(torch.unique(ids[valid]).numel())
+            nbytes = ids.numel() * 4 + (reads * 1024 + out.numel()) \
+                * src.element_size()
+        elif k == "expand_pieces":
+            # the piece tables, each distinct bank value a slot reads, the
+            # subtiles written
+            j, cuts, boffs, apv, bank, _ = args
+            sel, bidx = self.piecewise.piece_sources(j, cuts, boffs)
+            reads = int(torch.unique(bidx[sel >= 0]).numel())
+            vb = bank.element_size()
+            nbytes = cuts.numel() * (8 + vb) + (reads + out.numel()) * vb
+        elif k == "fused_class_v2":
+            # the tables the v2 kernel reads (not tile_idx), the class's A
+            # values, each distinct bank value its products read, the
+            # class arena written
+            plan, bank, apv = args
+            tabs = (plan.tile_inv, plan.ext_idx, plan.entry_idx,
+                    plan.tier_idx, plan.etrips, plan.ecuts, plan.eboffs,
+                    plan.eends)
+            _, bidx, _ = self.window_fused.class_product_sources(plan)
+            reads = int(torch.unique(bidx).numel())
+            vb = bank.element_size()
+            nbytes = sum(x.numel() * 4 for x in tabs) \
+                + (apv.numel() + reads + out.numel()) * vb
         elif k == "windowed_gather":
             # the indices, the outputs and each window value they name
             win, idx, window = args
@@ -489,6 +553,11 @@ class Smoke:
             win, idx, _ = args
             il = idx.long()
             return lambda: torch.gather(win, 1, il)
+        if k == "gather_tiles8":
+            src, ids = args
+            t2 = src.view(-1, 1024)
+            il = ids.long().clamp(0, max(t2.shape[0] - 1, 0))
+            return lambda: t2.index_select(0, il)
         if k == "scatter_tiles":
             dst, ids, vals, tile = args
             d2, il, v2 = dst.clone().view(-1, tile), ids.long(), \
@@ -617,12 +686,26 @@ def cusparse_spgemm_ms(s: Smoke, a, what: str):
         return None
 
 
-def spgemm_phase(s: Smoke) -> None:
-    """C = A @ A on R-MAT-14: checks, timings and profile, its kernel
-    calls added to the record."""
+def check_c(s: Smoke, c, a, what: str) -> None:
+    """C against the scipy oracle (rtol 1e-5 f32 / 1e-8 f64 of |A||B|) and
+    finite; fails the run otherwise."""
     torch, nt = s.torch, s.nt
-    from nsparse_tpu_torch.ops.spgemm_window import (
-        KERNEL_OPS, PLAIN_OPS, spgemm_numeric_window)
+    ok = nt.check_spgemm_answer(c, nt.spgemm_oracle(a, a), verbose=True,
+                                abs_ref=nt.spgemm_abs_oracle(a, a))
+    finite = bool(torch.isfinite(c.val[: c.nnz]).all())
+    rtol = 1e-5 if a.val.dtype == torch.float32 else 1e-8
+    print(f"{what} vs scipy (rtol {rtol:g}, |A||B| bound): "
+          f"{'pass' if ok else 'FAIL'}  finite {finite}", flush=True)
+    if not ok or not finite:
+        fail(f"{what} does not match the scipy oracle")
+
+
+def spgemm_phase(s: Smoke) -> None:
+    """C = A @ A on R-MAT-14 in the v2 form, then in the v1 form: checks,
+    the two forms against each other, timings, the v2 stage split and a
+    profile, their kernel calls added to the record."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops import spgemm_window as sw
 
     a = nt.rmat_csr(SCALE, EDGE_FACTOR, dtype=np.float32, seed=SEED)
     path = nt.choose_spgemm_path(a, a)
@@ -632,6 +715,7 @@ def spgemm_phase(s: Smoke) -> None:
         fail(f"choose_spgemm_path chose {path} on R-MAT-{SCALE}, not esc")
     t0 = time.perf_counter()
     plan = nt.spgemm_plan(a, a)
+    w = plan.win
     print(f"R-MAT-{SCALE} C = A^2 f32: nnz(A) {a.nnz}  intermediate products "
           f"{plan.n_products}  nnz(C) {plan.c_nnz}  host plan "
           f"{time.perf_counter() - t0:.1f} s ({plan.planner} planner)",
@@ -639,67 +723,118 @@ def spgemm_phase(s: Smoke) -> None:
     if (plan.n_products, plan.c_nnz) != (N_PRODUCTS, NNZ_C):
         fail(f"funnel {plan.n_products}/{plan.c_nnz}, "
              f"expected {N_PRODUCTS}/{NNZ_C}")
+    print(f"v2 form {w.fused_expand}: aligned B table {w.b8_idx.numel()} "
+          f"slots, bank {w.bank_rows} rows "
+          f"({16 * w.bank_rows * 128 * 4} B in f32), classes "
+          f"{[(g[2], g[1], f.j2_cap) for g, f in zip(w.class_geom, w.fused)]} "
+          f"(width, slots, pieces per step), {w.apv_idx.numel()} class "
+          f"pieces; fallback pool {w.fb_len} slots, piece classes "
+          f"{[int(i.numel()) for i in w.pw.ids] if w.pw else None} subtiles",
+          flush=True)
+    if not w.fused_expand or w.bank_rows != BANK_ROWS or w.pw is None \
+            or w.fb_len != FB_PRODUCTS:
+        fail(f"expected the v2 form with a {BANK_ROWS}-row bank and a "
+             f"{FB_PRODUCTS}-slot fallback pool")
     plan_d, a_d = plan.to(s.dev), a.to(s.dev)
 
-    c = s.counted(lambda: nt.spgemm_numeric(plan_d, a_d, a_d),
-                  ["gather", "expand", "fused_class", "runcopy"], "spgemm")
-    ref_ok = nt.check_spgemm_answer(
-        c, nt.spgemm_oracle(a, a), verbose=True,
-        abs_ref=nt.spgemm_abs_oracle(a, a))
-    vals = c.val[: c.nnz]
-    print(f"C vs scipy (rtol 1e-5, |A||B| bound): "
-          f"{'pass' if ref_ok else 'FAIL'}  finite "
-          f"{bool(torch.isfinite(vals).all())}")
-    if not ref_ok or not torch.isfinite(vals).all():
-        fail("C does not match the scipy oracle")
+    def v2_run():
+        return nt.spgemm_numeric(plan_d, a_d, a_d)
+
+    c = s.counted(v2_run, SPGEMM_V2, "spgemm")
+    # K1: the class A values, the fallback pieces' A values, the fallback
+    # pool's two shuffles; K2 piece mode once per non-empty piece class
+    want = {"build_bank": 1, "gather": 4, "fused_class_v2": len(w.fused),
+            "expand_pieces": sum(1 for i in w.pw.ids if i.numel()),
+            "gather_tiles8": 1, "runcopy": 1}
+    if s.path_launches["spgemm"] != want:
+        fail(f"v2 launches {s.path_launches['spgemm']}, expected {want}")
+    check_c(s, c, a, "C (v2)")
 
     v2 = np.random.default_rng(SEED + 1).standard_normal(a.nnz)
     a2 = a.with_values(torch.from_numpy(v2.astype(np.float32)))
     c2 = nt.spgemm_numeric(plan_d, a2.to(s.dev), a2.to(s.dev))
-    rerun_ok = nt.check_spgemm_answer(
-        c2, nt.spgemm_oracle(a2, a2), verbose=True,
-        abs_ref=nt.spgemm_abs_oracle(a2, a2))
-    print(f"value re-run on the same plan vs scipy: "
-          f"{'pass' if rerun_ok else 'FAIL'}")
-    if not rerun_ok:
-        fail("value re-run does not match the scipy oracle")
-
+    check_c(s, c2, a2, "value re-run on the same plan")
     a64 = a2.with_values(torch.from_numpy(v2))
-    c64 = nt.spgemm_numeric(plan_d, a64.to(s.dev), a64.to(s.dev))
-    f64_ok = nt.check_spgemm_answer(
-        c64, nt.spgemm_oracle(a64, a64), verbose=True,
-        abs_ref=nt.spgemm_abs_oracle(a64, a64))
-    print(f"float64 values on the same plan vs scipy (rtol 1e-8): "
-          f"{'pass' if f64_ok else 'FAIL'}")
-    if not f64_ok:
-        fail("float64 numeric does not match the scipy oracle")
+    a64_d = a64.to(s.dev)
+    c64 = nt.spgemm_numeric(plan_d, a64_d, a64_d)
+    check_c(s, c64, a64, "float64 values on the same plan")
 
-    # the main path's own kernel calls, for the per-kernel comparison
-    ops_type = type(KERNEL_OPS)
+    # the same matrix in the v1 form
+    budget, sw.FUSED_BANK_BUDGET = sw.FUSED_BANK_BUDGET, 0
+    try:
+        plan1 = host_timed("v1 plan (FUSED_BANK_BUDGET = 0)",
+                           lambda: nt.spgemm_plan(a, a))
+    finally:
+        sw.FUSED_BANK_BUDGET = budget
+    if plan1.win.fused_expand:
+        fail("FUSED_BANK_BUDGET = 0 did not pin the v1 form")
+    plan1_d = plan1.to(s.dev)
 
-    def recorder(field):
+    def v1_run():
+        return nt.spgemm_numeric(plan1_d, a_d, a_d)
+
+    c1 = s.counted(v1_run, SPGEMM_V1, "spgemm-v1")
+    want = {"gather": 2, "expand": 1, "fused_class": len(plan1.win.fused),
+            "runcopy": 1}
+    if s.path_launches["spgemm-v1"] != want:
+        fail(f"v1 launches {s.path_launches['spgemm-v1']}, expected {want}")
+    check_c(s, c1, a, "C (v1)")
+    c64_1 = nt.spgemm_numeric(plan1_d, a64_d, a64_d)
+    same = torch.equal(c.val, c1.val) and torch.equal(c64.val, c64_1.val)
+    print(f"C v2 == C v1 (torch.equal, f32 and f64): {same}", flush=True)
+    if not same:
+        fail("the v2 and v1 numeric phases give different C")
+
+    # each form's own kernel calls, for the per-kernel comparison
+    ops_type = type(sw.KERNEL_OPS)
+
+    def recorder(field, where):
         def call(*args):
-            s.calls[SPGEMM_FIELDS[field]].append(("spgemm", args))
-            return getattr(KERNEL_OPS, field)(*args)
+            s.calls[SPGEMM_FIELDS[field]].append((where, args))
+            return getattr(sw.KERNEL_OPS, field)(*args)
         return call
 
-    spgemm_numeric_window(plan_d, a_d, a_d,
-                          ops=ops_type(*map(recorder, ops_type._fields)))
+    for where, pl in (("spgemm", plan_d), ("spgemm-v1", plan1_d)):
+        sw.spgemm_numeric_window(pl, a_d, a_d, ops=ops_type(
+            *(recorder(f, where) for f in ops_type._fields)))
 
-    times = {"plain": [], "kernels": []}
-    for mode in ("plain", "kernels", "kernels", "plain"):
-        ops = PLAIN_OPS if mode == "plain" else KERNEL_OPS
-        times[mode].append(s.time_cuda(
-            lambda: spgemm_numeric_window(plan_d, a_d, a_d, ops=ops),
-            trials=TRIALS))
-    ms_k, ms_p = float(np.mean(times["kernels"])), float(np.mean(times["plain"]))
     lib_ms = cusparse_spgemm_ms(s, a, "spgemm")
-    print(f"numeric phase [{s.name}, {s.card}]: kernels {ms_k:.4f} ms "
-          f"({times['kernels']})  plain {ms_p:.4f} ms ({times['plain']})  "
-          f"cuSPARSE CSR A @ A {fmt_ms(lib_ms)} ms  "
-          f"{2 * plan.n_products / (ms_k * 1e-3) / 1e9:.2f} GFLOPS")
-    profile_calls(torch, lambda: spgemm_numeric_window(plan_d, a_d, a_d),
-                  "numeric")
+    for where, pl in (("v2", plan_d), ("v1", plan1_d)):
+        times = {"plain": [], "kernels": []}
+        for mode in ("plain", "kernels", "kernels", "plain"):
+            ops = sw.PLAIN_OPS if mode == "plain" else sw.KERNEL_OPS
+            times[mode].append(s.time_cuda(
+                lambda: sw.spgemm_numeric_window(pl, a_d, a_d, ops=ops),
+                trials=TRIALS))
+        ms_k = float(np.mean(times["kernels"]))
+        print(f"numeric phase {where} [{s.name}, {s.card}]: kernels "
+              f"{ms_k:.4f} ms ({times['kernels']})  plain "
+              f"{np.mean(times['plain']):.4f} ms ({times['plain']})  "
+              f"cuSPARSE CSR A @ A {fmt_ms(lib_ms)} ms  "
+              f"{2 * plan.n_products / (ms_k * 1e-3) / 1e9:.2f} GFLOPS",
+              flush=True)
+
+    # the v2 stage split (bench.py's headline breakdown), each stage
+    # timed alone on the same plan
+    w_d = plan_d.win
+    bank, apv = sw.v2_delivery(w_d, a_d.val, a_d.val)
+    segs = sw.v2_classes(w_d, bank, apv)
+    segs.append(sw.v2_fallback(w_d, a_d.val, bank))
+    stage_ms = {
+        "delivery": s.time_cuda(
+            lambda: sw.v2_delivery(w_d, a_d.val, a_d.val), trials=TRIALS),
+        "classes": s.time_cuda(lambda: sw.v2_classes(w_d, bank, apv),
+                               trials=TRIALS),
+        "fallback": s.time_cuda(lambda: sw.v2_fallback(w_d, a_d.val, bank),
+                                trials=TRIALS),
+        "merge": s.time_cuda(lambda: sw.merge_segments(plan_d, segs),
+                             trials=TRIALS),
+    }
+    print(f"v2 stages [{s.name}, {s.card}]: "
+          + "  ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+          + f"  (sum {sum(stage_ms.values()):.4f} ms)", flush=True)
+    profile_calls(torch, v2_run, "v2 numeric")
+    profile_calls(torch, v1_run, "v1 numeric")
 
 
 def gather_kernels(plans) -> set:

@@ -195,6 +195,8 @@ def cmd_spgemm(args) -> int:
     print(f"nnz(A): {a.nnz}  intermediate products: {plan.n_products}  "
           f"nnz(C): {plan.c_nnz}")
     print(f"symbolic (host plan, {plan.planner} planner): {sym_ms:.1f} ms")
+    print(f"numeric form: {'v2' if plan.win.fused_expand else 'v1'} (bank "
+          f"{plan.win.bank_rows} rows)")
 
     plan_d, a_d = plan.to(dev), a.to(dev)
     ms, where = _timed(lambda: spgemm_numeric(plan_d, a_d, a_d), dev,

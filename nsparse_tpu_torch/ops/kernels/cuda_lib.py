@@ -24,7 +24,8 @@ from nsparse_tpu_torch.buildlib import PKG_DIR, build_shared
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu",
            "gather_subset.cu", "scatter_tiles.cu", "spmv_dia.cu",
-           "spmv_bsr.cu", "spgemm_bsr.cu", "windowed_gather.cu")
+           "spmv_bsr.cu", "spgemm_bsr.cu", "windowed_gather.cu",
+           "build_bank.cu", "gather_tiles8.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -36,9 +37,14 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "nsp_gather": [_P, _I64, _P, _P, _I64, _P],
     "nsp_expand": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    "nsp_expand_pieces": [_P, _P, _P, _P, _I64, _I32, _P, _P],
     "nsp_fused_class": [
         _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
         ctypes.POINTER(_I32), _P, _I64, _P,
+    ],
+    "nsp_fused_class_v2": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+        ctypes.POINTER(_I32), _P, _I64, _I32, _I32, _P,
     ],
     "nsp_runcopy": [_P, _P, _P, _P, _I64, _P, _I64, _P],
     "nsp_gather_subset": [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P],
@@ -47,6 +53,8 @@ _SIGNATURES = {
     "nsp_spmv_bsr": [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P],
     "nsp_spgemm_bsr": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P],
     "nsp_windowed_gather": [_P, _I64, _P, _I32, _I64, _P, _P],
+    "nsp_build_bank": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P],
+    "nsp_gather_tiles8": [_P, _I64, _P, _I64, _P, _P],
 }
 
 

@@ -1,9 +1,10 @@
-"""Tile-subset gather, tile scatter and windowed gather: kernels K5, K6
-and K10.
+"""Tile-subset gather, tile scatter, tile gather and windowed gather:
+kernels K5, K6, K12 and K10.
 
 Counterpart of ``nsparse_tpu/ops/kernels/gather_pallas.py``'s
 ``gather_subset_window``/``gather_subset_band`` (K5 ``gather_subset``),
-``scatter_tiles`` (K6) and ``windowed_gather`` (K10).  The TPU kernels
+``scatter_tiles`` (K6), ``gather_tiles8`` (K12) and ``windowed_gather``
+(K10).  The TPU kernels
 replace a gather the TPU lacks with roll-scans over a window or band;
 Hopper gathers in hardware, so K5 reads each slot's source directly and
 one kernel serves every class (the class's unit size tells it how many
@@ -114,6 +115,51 @@ def scatter_tiles(dst: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
 
 
 scatter_tiles.launches = 0
+
+TILE8 = 1024  # a gather_tiles8 tile: 8 rows of 128 slots on the TPU
+
+
+def gather_tiles8_plain(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K12."""
+    if src.numel() % TILE8:
+        raise ValueError("gather_tiles8: src must be whole 1024-slot tiles")
+    tiles = src.view(-1, TILE8)
+    n_src = tiles.shape[0]
+    j = ids.long()
+    valid = (j >= 0) & (j < n_src)
+    if not n_src:
+        return torch.zeros(ids.numel() * TILE8, dtype=src.dtype,
+                           device=src.device)
+    out = tiles[j.clamp(0, n_src - 1)]
+    return torch.where(valid[:, None], out, 0).reshape(-1)
+
+
+def gather_tiles8(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """K12: ``out`` tile i (1024 slots) = ``src`` tile ``ids[i]``, a zero
+    tile where ``ids[i]`` is outside ``src``; returns (len(ids) * 1024,).
+
+    CPU tensors take :func:`gather_tiles8_plain`; CUDA tensors launch the
+    kernel (``csrc/gather_tiles8.cu``) or raise.
+    """
+    if src.numel() % TILE8:
+        raise ValueError("gather_tiles8: src must be whole 1024-slot tiles")
+    if src.device.type == "cpu":
+        return gather_tiles8_plain(src, ids)
+    cuda_lib.require_cuda("gather_tiles8", src, ids)
+    if src.data_ptr() % 16:
+        raise ValueError("gather_tiles8: src must be 16-byte aligned")
+    out = torch.empty(ids.numel() * TILE8, dtype=src.dtype, device=src.device)
+    if ids.numel():
+        fn = cuda_lib.entry("nsp_gather_tiles8", src.dtype)
+        with torch.cuda.device(src.device):
+            rc = fn(cuda_lib.ptr(src), src.numel() // TILE8, cuda_lib.ptr(ids),
+                    ids.numel(), cuda_lib.ptr(out), cuda_lib.stream(src))
+        cuda_lib.check(rc, "gather_tiles8")
+        gather_tiles8.launches += 1
+    return out
+
+
+gather_tiles8.launches = 0
 
 
 def windowed_gather_plain(win: torch.Tensor, idx: torch.Tensor,

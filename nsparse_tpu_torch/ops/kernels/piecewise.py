@@ -1,24 +1,55 @@
-"""Product expansion from run descriptors, and kernel K2 (expand).
+"""Product expansion, the pre-rolled B bank, and kernels K2 and K11.
 
-Counterpart of ``nsparse_tpu/ops/kernels/piecewise.py``.  In the window
-arena every slot belongs to one run: an A entry's run holds
-``a.val[e] * b.val[b_start:b_start + live_len]`` followed by zero padding
-up to its 8-aligned length, and gap runs (window slack, padding windows)
-hold zeros.  The JAX package reads B through an 8-aligned copy of
-``b.val`` (and, on the TPU, a pre-rolled bank of it); the port reads
-``b.val`` directly, so a run is just ``(start, b_start, live_len, aidx)``.
+Counterpart of ``nsparse_tpu/ops/kernels/piecewise.py``.  Two plan forms
+expand products ``a.val[e] * b.val[j]``:
+
+- :class:`ExpandPlan` (the v1 window numeric): every arena slot belongs
+  to one run ``(start, b_start, live_len, aidx)`` that reads ``b.val``
+  directly; K2 writes arena order.
+- :class:`PiecewisePlan` (the JAX package's aligned mode; the v2 numeric
+  expands its fallback pool with it): per 1024-slot subtile, a J-budget
+  table of pieces ``(cut, bank-row code)`` whose per-piece A values come
+  from one K1 gather; K2's piece mode writes a class-major compact buffer,
+  and K12 (``gather_tiles8``) restores arena order.  The JAX plan also
+  routes run-dense subtiles (more pieces than the largest budget)
+  element-wise through ``scatter_tiles``; 8-aligned runs start at most
+  128 pieces in a subtile, within the largest budget, so aligned plans
+  never have one, and the port's build_piecewise_plan raises if one
+  would arise.
+
+Both read B through the bank (:func:`build_bank`, K11): the 8-aligned B
+table behind ``BIAS`` zero slots, in ``BANK_K`` copies each rolled 8
+slots further, so that bank-row code ``k * bank_rows + q`` names the 1024
+table slots from ``128 q + 8 k - BIAS`` on.  The bank is the JAX array
+element for element; on the TPU it made every piece one aligned slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from nsparse_tpu_torch.ops.kernels import cuda_lib
+from nsparse_tpu_torch.ops.kernels import cuda_lib, gather_tiles, shuffle
+from nsparse_tpu_torch.tune import kernelgen
 from nsparse_tpu_torch.utils.device import int32_tensor as t
 from nsparse_tpu_torch.utils.device import to_device
+
+LANES = 128
+TILE = 1024                 # slots per subtile (8 x 128 on the TPU)
+SUB = 8                     # subtiles per class group (the TPU grid step)
+SUPER = SUB * TILE          # the piecewise arena is padded to this
+BIAS = 2048                 # zero slots in front of the B table
+BANK_K = kernelgen.BANK_K
+BANK_ROWS_MAX = kernelgen.BANK_ROWS_MAX
+J_CLASSES = kernelgen.PW_J_CLASSES
+MAX_J = 128                 # K2 piece mode's piece table (csrc/expand.cu)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +114,7 @@ def build_expand_plan(run_start, b_start, live_len, aidx, n: int,
     )
 
 
-def _check_values(plan: ExpandPlan, a_val: torch.Tensor, b_val: torch.Tensor):
+def _check_values(plan, a_val: torch.Tensor, b_val: torch.Tensor):
     if a_val.numel() < plan.nnz_a or b_val.numel() < plan.nnz_b:
         raise ValueError("value arrays shorter than the plan's nnz")
     if a_val.dtype != b_val.dtype:
@@ -109,14 +140,359 @@ def expand_plain(plan: ExpandPlan, a_val: torch.Tensor,
     return torch.where(live, a_val[ai] * b_val[bi], 0)
 
 
-def piecewise_expand(plan: ExpandPlan, a_val: torch.Tensor,
-                     b_val: torch.Tensor) -> torch.Tensor:
-    """K2: the (n,) product arena for these values (any values, same
-    sparsity — the numeric re-run contract).
+# -- the pre-rolled B bank (K11) ---------------------------------------------
 
-    CPU tensors take :func:`expand_plain`; CUDA tensors launch the kernel
-    (``csrc/expand.cu``) or raise.
+
+def bank_rows_for(nnz_b8: int) -> int:
+    """Bank rows (of 128 slots) for an 8-aligned B table of ``nnz_b8``
+    slots: the BIAS zeros, the table and a subtile of slack, rounded to
+    64 rows (the block of the JAX bank kernel)."""
+    rows = (BIAS + _round_up(nnz_b8 + TILE + LANES, LANES)) // LANES
+    return _round_up(rows, 64)
+
+
+def _check_bank_args(b8_idx: torch.Tensor, bank_rows: int):
+    if BIAS + b8_idx.numel() > bank_rows * LANES:
+        raise ValueError(f"{b8_idx.numel()} table slots do not fit "
+                         f"{bank_rows} bank rows")
+
+
+def build_bank_plain(b8_idx: torch.Tensor, bank_rows: int,
+                     b_val: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K11."""
+    _check_bank_args(b8_idx, bank_rows)
+    n = bank_rows * LANES
+    dev = b_val.device
+    j = torch.full((n,), -1, dtype=torch.long, device=dev)
+    j[BIAS : BIAS + b8_idx.numel()] = b8_idx.long()
+    flat = shuffle.gather_plain(b_val, j)
+    roll = (torch.arange(n, device=dev)[None, :]
+            + 8 * torch.arange(BANK_K, device=dev)[:, None]) % n
+    return flat[roll].reshape(BANK_K * bank_rows, LANES)
+
+
+def build_bank(b8_idx: torch.Tensor, bank_rows: int,
+               b_val: torch.Tensor) -> torch.Tensor:
+    """K11: the (BANK_K * bank_rows, 128) bank of B values.  Copy k is
+    the flat table ``flat[j] = b_val[b8_idx[j - BIAS]]`` (0 outside the
+    table, where ``b8_idx`` is -1 or outside ``b_val``) rolled by -8k:
+    ``bank[k * bank_rows * 128 + t] = flat[(t + 8k) mod (bank_rows * 128)]``.
+
+    CPU tensors take :func:`build_bank_plain`; CUDA tensors launch the
+    kernel (``csrc/build_bank.cu``) or raise.
     """
+    if b_val.device.type == "cpu":
+        return build_bank_plain(b8_idx, bank_rows, b_val)
+    _check_bank_args(b8_idx, bank_rows)
+    cuda_lib.require_cuda("build_bank", b_val, b8_idx)
+    out = torch.empty(BANK_K * bank_rows, LANES, dtype=b_val.dtype,
+                      device=b_val.device)
+    fn = cuda_lib.entry("nsp_build_bank", b_val.dtype)
+    with torch.cuda.device(b_val.device):
+        rc = fn(cuda_lib.ptr(b_val), b_val.numel(), cuda_lib.ptr(b8_idx),
+                b8_idx.numel(), bank_rows, BIAS, BANK_K, cuda_lib.ptr(out),
+                cuda_lib.stream(b_val))
+    cuda_lib.check(rc, "build_bank")
+    build_bank.launches += 1
+    return out
+
+
+build_bank.launches = 0
+
+
+# -- the piece-table expansion (K2 piece mode) -------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PiecewisePlan:
+    """Piece tables of the aligned-bank expansion of a product arena
+    ``[0, n)`` (zero beyond ``n``, padded to ``n_pad``).
+
+    Attributes:
+      ids: per class of ``J_CLASSES``, (n_groups * SUB,) int32 arena
+        subtile ids (-1 = group pad, a zero tile).
+      cuts: per class, (n_groups * SUB * J,) int32 piece starts within
+        each subtile, non-decreasing (TILE = inert piece).
+      boffs: per class, (n_groups * SUB * J,) int32 bank-row codes.
+      apv_idx: (sum of the classes' pieces,) int32 ``a.val`` index of
+        every piece, classes concatenated (-1 = zero: gap and pad runs);
+        ``apv_splits`` bound each class's slice.
+      arena_src: (n_pad / TILE,) int32 compact tile of each arena tile;
+        dead subtiles name the tile past the compact buffer (the JAX
+        plan's trailing zero tile), which K12 reads as zeros.
+      n, n_pad, nnz_a: arena, padded arena and ``a.val`` sizes; nnz_b:
+        the 8-aligned B table's length; bank_rows: the bank it reads.
+    """
+
+    ids: Tuple[torch.Tensor, ...]
+    cuts: Tuple[torch.Tensor, ...]
+    boffs: Tuple[torch.Tensor, ...]
+    apv_idx: torch.Tensor
+    arena_src: torch.Tensor
+    apv_splits: Tuple[Tuple[int, int], ...]
+    n: int
+    n_pad: int
+    nnz_a: int
+    nnz_b: int
+    bank_rows: int
+
+    @property
+    def n_compact(self) -> int:
+        """Tiles of the class-major compact buffer."""
+        return sum(int(i.shape[0]) for i in self.ids)
+
+    def to(self, device) -> "PiecewisePlan":
+        return to_device(self, device)
+
+
+def _check_codes(code: np.ndarray, bank_rows: int, what: str) -> None:
+    """Each piece reads the 1024 bank slots from row ``code`` on."""
+    if code.size and not ((code >= 0)
+                          & (code <= BANK_K * bank_rows - TILE // LANES)).all():
+        raise ValueError(f"{what}: bank row outside the bank")
+
+
+def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
+                         nnz_b: int) -> PiecewisePlan:
+    """Host: route runs into per-subtile piece tables (the JAX package's
+    aligned-bank mode).
+
+    ``run_start``: ascending product positions where a run begins (run 0
+    at 0), multiples of 8; ``run_boff``: the 8-aligned table offset of
+    each run's first product, a multiple of 8; ``run_aidx``: its
+    ``a.val`` index (``nnz_a`` for gap runs); ``nnz_b``: the aligned
+    table's length.  ``[n, n_pad)`` is routed as one pad run of zeros.
+    """
+    run_start = np.asarray(run_start, dtype=np.int64)
+    run_boff = np.asarray(run_boff, dtype=np.int64)
+    run_aidx = np.asarray(run_aidx, dtype=np.int64)
+    n_pad = _round_up(max(n, 1), SUPER)
+    if not ((run_start % 8 == 0).all() and (run_boff % 8 == 0).all()):
+        raise ValueError("aligned pieces need 8-aligned runs and offsets")
+    if run_start.size and (run_start[0] != 0
+                           or not (np.diff(run_start) > 0).all()):
+        raise ValueError("piece runs must start at 0 and ascend")
+    if not ((run_aidx >= 0) & (run_aidx <= nnz_a)).all():
+        raise ValueError("piece run A index out of range")
+    rows_tot = bank_rows_for(nnz_b)
+    if rows_tot > BANK_ROWS_MAX:
+        raise NotImplementedError(
+            f"a bank of {rows_tot} rows takes the unaligned piece mode "
+            f"(more than {BANK_ROWS_MAX} rows), which is not ported")
+
+    # the pad run: zero a.val slot, table offset 0
+    run_start = np.concatenate([run_start, [n]])
+    run_boff = np.concatenate([run_boff, [0]])
+    run_aidx = np.concatenate([run_aidx, [nnz_a]])
+    n_runs = run_start.size
+
+    n_sub = n_pad // TILE
+    sub_base = np.arange(n_sub, dtype=np.int64) * TILE
+    first = np.searchsorted(run_start, sub_base, side="right") - 1
+    starts_in = np.bincount(
+        np.minimum(run_start // TILE, n_sub - 1), minlength=n_sub
+    )
+    # a run starting exactly at the tile base replaces the continuation
+    at_base = np.zeros(n_sub, dtype=bool)
+    at_base[run_start[(run_start % TILE == 0) & (run_start < n_pad)]
+            // TILE] = True
+    count = starts_in + (~at_base).astype(np.int64)
+
+    # dead subtiles (only gap and pad runs) get no class: they read zeros
+    pref = np.concatenate([[0], np.cumsum(run_aidx != nnz_a)])
+    lo = np.maximum(first, 0)
+    hi = np.minimum(first + count, n_runs)
+    sub_live = pref[np.maximum(hi, lo)] - pref[lo] > 0
+
+    cls_of = np.full(n_sub, -1, np.int64)
+    for ci, J in enumerate(J_CLASSES):
+        cls_of[sub_live & (cls_of < 0) & (count <= J)] = ci
+
+    ids, cuts_l, boffs_l, aidx_l = [], [], [], []
+    cpos_of = np.full(n_sub, -1, np.int64)
+    cbase = 0
+    for ci, J in enumerate(J_CLASSES):
+        subs = np.flatnonzero(cls_of == ci).astype(np.int64)
+        padded = np.full(-(-subs.size // SUB) * SUB, -1, np.int64)
+        padded[: subs.size] = subs
+        ids.append(padded)
+        if not subs.size:
+            cuts_l.append(np.zeros(0, np.int64))
+            boffs_l.append(np.zeros(0, np.int64))
+            aidx_l.append(np.zeros(0, np.int64))
+            continue
+        cpos_of[subs] = cbase + np.arange(subs.size)
+        cbase += padded.size
+        sc = np.maximum(padded, 0)
+        # piece k of subtile s is run first[s] + k while k < count[s];
+        # group pads carry only inert pieces (cut == TILE)
+        k = np.arange(J, dtype=np.int64)
+        r = first[sc][:, None] + k[None, :]
+        valid = ((k[None, :] < count[sc][:, None]) & (r < n_runs)
+                 & (padded >= 0)[:, None])
+        rc = np.minimum(r, n_runs - 1)
+        base = sub_base[sc][:, None]
+        cut = np.where(valid, np.maximum(run_start[rc] - base, 0), TILE)
+        eff = run_boff[rc] - run_start[rc] + base + BIAS
+        # bank-row code: eff = 128 q + 8 k -> row q of copy k
+        boff = np.where(valid, (eff % LANES) // 8 * rows_tot + eff // LANES,
+                        0)
+        # inert pieces repeat the previous piece's A index (the JAX
+        # package keeps its gather stream near-monotone); never read
+        flat = np.where(valid, run_aidx[rc], -1).reshape(-1)
+        last = np.maximum.accumulate(
+            np.where(flat >= 0, np.arange(flat.size), -1))
+        ai = np.where(last >= 0, flat[np.maximum(last, 0)], 0)
+        cuts_l.append(cut.reshape(-1))
+        boffs_l.append(boff.reshape(-1))
+        aidx_l.append(ai)
+
+    # arena tile -> compact tile; dead subtiles name the tile past the end
+    arena_src = np.where(cpos_of >= 0, cpos_of, cbase)
+    if (sub_live & (cls_of < 0)).any():
+        raise AssertionError("a subtile holds more pieces than the largest "
+                             "budget (runs not 8-aligned?)")
+
+    for J, c, b in zip(J_CLASSES, cuts_l, boffs_l):
+        c2 = c.reshape(-1, J)
+        if c2.size and not ((c2 >= 0) & (c2 <= TILE)).all() \
+                or (np.diff(c2, axis=1) < 0).any():
+            raise ValueError("piece cuts must ascend inside their subtile")
+        _check_codes(b, rows_tot, "piece table")
+
+    aidx_cat = np.concatenate(aidx_l)
+    splits, off = [], 0
+    for a in aidx_l:
+        splits.append((off, off + a.size))
+        off += a.size
+    return PiecewisePlan(
+        ids=tuple(t(i) for i in ids),
+        cuts=tuple(t(c) for c in cuts_l),
+        boffs=tuple(t(b) for b in boffs_l),
+        apv_idx=t(np.where(aidx_cat == nnz_a, -1, aidx_cat)),
+        arena_src=t(arena_src),
+        apv_splits=tuple(splits),
+        n=int(n), n_pad=int(n_pad), nnz_a=int(nnz_a), nnz_b=int(nnz_b),
+        bank_rows=int(rows_tot),
+    )
+
+
+def _check_pieces(j_budget: int, cuts, boffs, apv, bank, out):
+    if not 0 < j_budget <= MAX_J or cuts.numel() % j_budget \
+            or boffs.numel() != cuts.numel() or apv.numel() != cuts.numel():
+        raise ValueError(f"piece tables of budget {j_budget} (at most "
+                         f"{MAX_J}) must be whole subtiles of one length")
+    n = cuts.numel() // j_budget
+    if out.numel() != n * TILE:
+        raise ValueError(f"{out.numel()} output slots for {n} subtiles")
+    if apv.dtype != bank.dtype or out.dtype != bank.dtype:
+        raise TypeError("apv, bank and out must share a dtype")
+
+
+def piece_sources(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor):
+    """Per slot of each subtile of one class: its piece (the last whose cut
+    is <= the slot, -1 if none) and its flat bank index."""
+    n = cuts.numel() // j_budget
+    pos = torch.arange(TILE, device=cuts.device)
+    c = cuts.view(n, j_budget).long()
+    sel = torch.searchsorted(c, pos.expand(n, TILE).contiguous(),
+                             right=True) - 1
+    bo = boffs.view(n, j_budget).long().gather(1, sel.clamp(min=0))
+    return sel, bo * LANES + pos
+
+
+def expand_pieces_plain(j_budget: int, cuts: torch.Tensor,
+                        boffs: torch.Tensor, apv: torch.Tensor,
+                        bank: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2's piece mode (fills ``out``)."""
+    _check_pieces(j_budget, cuts, boffs, apv, bank, out)
+    n = cuts.numel() // j_budget
+    if not n:
+        return out
+    sel, bidx = piece_sources(j_budget, cuts, boffs)
+    av = apv.view(n, j_budget).gather(1, sel.clamp(min=0))
+    out.view(n, TILE)[:] = torch.where(sel >= 0, bank.reshape(-1)[bidx] * av,
+                                       0)
+    return out
+
+
+def expand_pieces(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
+                  apv: torch.Tensor, bank: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """K2 piece mode: one class's subtiles into ``out`` (its slice of the
+    compact buffer).  Slot p of subtile s takes the last of its
+    ``j_budget`` pieces whose cut is <= p, ``bank[boff * 128 + p] *
+    apv[piece]``, and 0 where no piece starts at or before p.
+
+    CPU tensors take :func:`expand_pieces_plain`; CUDA tensors launch the
+    kernel (``csrc/expand.cu``) or raise.
+    """
+    if out.device.type == "cpu":
+        return expand_pieces_plain(j_budget, cuts, boffs, apv, bank, out)
+    _check_pieces(j_budget, cuts, boffs, apv, bank, out)
+    cuda_lib.require_cuda("expand_pieces", bank, apv, cuts, boffs, out)
+    n = cuts.numel() // j_budget
+    if n:
+        fn = cuda_lib.entry("nsp_expand_pieces", out.dtype)
+        with torch.cuda.device(out.device):
+            rc = fn(cuda_lib.ptr(bank), cuda_lib.ptr(apv), cuda_lib.ptr(cuts),
+                    cuda_lib.ptr(boffs), n, j_budget, cuda_lib.ptr(out),
+                    cuda_lib.stream(out))
+        cuda_lib.check(rc, "expand_pieces")
+        expand_pieces.launches += 1
+    return out
+
+
+expand_pieces.launches = 0
+
+
+def expand_from_bank(plan: PiecewisePlan, a_val: torch.Tensor,
+                     bank: torch.Tensor, gather=shuffle.gather,
+                     pieces=expand_pieces,
+                     tiles8=gather_tiles.gather_tiles8) -> torch.Tensor:
+    """The (n_pad,) product arena of a :class:`PiecewisePlan`: per-piece A
+    values (K1), each class's pieces into the class-major compact buffer
+    (K2 piece mode), then arena order (K12).  The kernel arguments let a
+    caller pass their plain versions."""
+    if a_val.numel() < plan.nnz_a:
+        raise ValueError("a.val shorter than the plan's nnz")
+    if a_val.dtype != bank.dtype:
+        raise TypeError("a.val and the bank must share a dtype")
+    if bank.shape != (BANK_K * plan.bank_rows, LANES):
+        raise ValueError(f"bank of shape {tuple(bank.shape)} for "
+                         f"{plan.bank_rows} bank rows")
+    apv = gather(a_val, plan.apv_idx)
+    compact = torch.empty(plan.n_compact * TILE, dtype=a_val.dtype,
+                          device=a_val.device)
+    cbase = 0
+    for J, ids, cuts, boffs, (lo, hi) in zip(
+            J_CLASSES, plan.ids, plan.cuts, plan.boffs, plan.apv_splits):
+        n_sub = int(ids.shape[0])
+        if n_sub:
+            pieces(J, cuts, boffs, apv[lo:hi], bank,
+                   compact[cbase * TILE : (cbase + n_sub) * TILE])
+        cbase += n_sub
+    return tiles8(compact, plan.arena_src)
+
+
+def piecewise_expand(plan, a_val: torch.Tensor, b_val: torch.Tensor,
+                     bank: torch.Tensor | None = None) -> torch.Tensor:
+    """The product arena for these values (any values, same sparsity —
+    the numeric re-run contract).
+
+    An :class:`ExpandPlan` launches K2 (run form; CPU tensors take
+    :func:`expand_plain`, CUDA tensors the kernel, ``csrc/expand.cu``, or
+    raise).  A :class:`PiecewisePlan` takes the piece route of
+    :func:`expand_from_bank` on ``bank`` (from :func:`build_bank`; only
+    its dtype is read from ``b_val``).
+    """
+    if isinstance(plan, PiecewisePlan):
+        if bank is None:
+            raise ValueError("a PiecewisePlan expands from the bank: pass "
+                             "bank=build_bank(b8_idx, bank_rows, b_val)")
+        if b_val.dtype != a_val.dtype:
+            raise TypeError("a.val and b.val must share a dtype")
+        return expand_from_bank(plan, a_val, bank)
     if a_val.device.type == "cpu":
         return expand_plain(plan, a_val, b_val)
     _check_values(plan, a_val, b_val)

@@ -1,8 +1,8 @@
 """Fused window reduction of one width class, and kernel K3.
 
-Counterpart of ``nsparse_tpu/ops/kernels/window_fused.py`` in its v1 form,
-together with the per-class tile permutation that feeds it there
-(``shuffle_pallas.tile_benes_apply``).  Per window of W slots: read the
+Counterpart of ``nsparse_tpu/ops/kernels/window_fused.py``, together with
+the per-class tile permutation that feeds it there
+(``shuffle_pallas.tile_benes_apply``).  Per window of W slots: place the
 products into fold slots through the tile permutation, fold ``lv``
 levels, run the radix-8 tiers (gather the arena ``[F_prev | zeros]``,
 fold 3 levels), then write each slot's entry total,
@@ -10,22 +10,35 @@ fold 3 levels), then write each slot's entry total,
 end.  The semantics are the JAX package's ``_fused_reference``; the port
 stores every index window-local (the JAX plan's are global), which lets
 one CUDA block own one window.
+
+Two modes, as in the JAX package:
+- v1: the products arrive in arena order (``x``) and F0 reads them
+  through the tile permutation, ``F0[i] = x[tile[i]]``;
+- v2 (``plan.expand``): the kernel forms the products itself from the
+  pre-rolled B bank (``piecewise.build_bank``) and per-piece A values:
+  slot p of arena subtile s takes ``bank[eboff * 128 + p] * apv`` from
+  the piece of s with ``cut <= p < end``.  The kernel writes each product
+  straight to its fold slot through the inverse permutation
+  (``tile_inv``, a table derived on the host), so the window's products
+  never reach device memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from nsparse_tpu_torch.ops.kernels import cuda_lib
+from nsparse_tpu_torch.ops.kernels.piecewise import BANK_K, LANES, TILE
 from nsparse_tpu_torch.utils.device import int32_tensor as t
 from nsparse_tpu_torch.utils.device import to_device
 
-MAX_TIERS = 8  # the kernel's tier table (csrc/fused_class.cu)
+MAX_TIERS = 8     # the kernel's tier table (csrc/fused_class.cu)
+MAX_PIECES = 256  # v2: pieces of one subtile the kernel stages at once
 
 
 def level_widths(w: int, lv: int, tier_vs) -> Tuple[int, ...]:
@@ -34,6 +47,31 @@ def level_widths(w: int, lv: int, tier_vs) -> Tuple[int, ...]:
     for v in tier_vs:
         out += [v >> 1, v >> 2, v >> 3]
     return tuple(out)
+
+
+class ClassPieces(NamedTuple):
+    """The v2 expansion tables of one class, as the JAX planner builds them
+    (its SMEM reshape undone).
+
+    etrips: (n_sub, 2) each arena subtile's pieces ``[lo, hi)``, counted
+      within its step's region: a step is ``blk`` slots (``blk / 1024``
+      subtiles), and step i's region is entries ``[i * j2_cap, (i + 1) *
+      j2_cap)`` of the piece tables;
+    ecuts / eboffs / eends: (n_steps * j2_cap,) each piece's slots
+      ``[cut, end)`` within its subtile and its bank-row code;
+    apv_lo / apv_hi: the class's slice of the per-piece A values;
+    bank_rows: the bank the codes index.
+    """
+
+    etrips: np.ndarray
+    ecuts: np.ndarray
+    eboffs: np.ndarray
+    eends: np.ndarray
+    j2_cap: int
+    blk: int
+    apv_lo: int
+    apv_hi: int
+    bank_rows: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +87,11 @@ class FusedClassPlan:
       entry_idx: (slots,) int32 window-local E slot of each output slot.
       w: window width; slots: class slots (``n_win * w``); lv: fold levels
         before the tiers; tier_vs: tier arena widths.
+      v2 only (None / 0 in v1): ``tile_inv`` (slots,) int32, the fold slot
+        of each window-local product (the inverse of ``tile_idx``), and
+        the :class:`ClassPieces` tables ``etrips`` (n_sub, 2), ``ecuts``,
+        ``eboffs``, ``eends``, with ``j2_cap``, ``blk``, ``apv_lo``,
+        ``apv_hi`` and ``bank_rows``.
     """
 
     tile_idx: torch.Tensor
@@ -59,6 +102,16 @@ class FusedClassPlan:
     slots: int
     lv: int
     tier_vs: Tuple[int, ...]
+    tile_inv: torch.Tensor | None = None
+    etrips: torch.Tensor | None = None
+    ecuts: torch.Tensor | None = None
+    eboffs: torch.Tensor | None = None
+    eends: torch.Tensor | None = None
+    j2_cap: int = 0
+    blk: int = 0
+    apv_lo: int = 0
+    apv_hi: int = 0
+    bank_rows: int = 0
 
     @property
     def n_win(self) -> int:
@@ -68,17 +121,66 @@ class FusedClassPlan:
     def pyr_len(self) -> int:
         return sum(level_widths(self.w, self.lv, self.tier_vs))
 
+    @property
+    def expand(self) -> bool:
+        """v2: the kernel expands the products itself."""
+        return self.etrips is not None
+
     def to(self, device) -> "FusedClassPlan":
         return to_device(self, device)
 
 
+def _check_pieces(pc: ClassPieces, w: int, slots: int) -> None:
+    """The v2 tables of a class: each subtile's pieces lie inside its
+    step's region, ascend and do not overlap, ``0 <= cut <= end <= 1024``,
+    and every piece with slots reads rows inside the bank."""
+    n_sub = slots // TILE
+    if w % TILE or pc.blk % w or slots % pc.blk:
+        raise ValueError(f"steps of {pc.blk} slots do not tile windows of "
+                         f"{w} in {slots} slots")
+    n_steps = slots // pc.blk
+    size = n_steps * pc.j2_cap
+    if np.asarray(pc.etrips).shape != (n_sub, 2) or any(
+            np.asarray(a).shape != (size,)
+            for a in (pc.ecuts, pc.eboffs, pc.eends)):
+        raise ValueError("v2 piece tables have the wrong shape")
+    if pc.apv_hi - pc.apv_lo != size:
+        raise ValueError("the A-value slice does not match the piece tables")
+    lo = np.asarray(pc.etrips[:, 0], np.int64)
+    hi = np.asarray(pc.etrips[:, 1], np.int64)
+    if not ((lo >= 0) & (lo <= hi) & (hi <= pc.j2_cap)).all():
+        raise ValueError("v2 pieces leave their step's region")
+    if (hi - lo > MAX_PIECES).any():
+        raise ValueError(f"a subtile holds more than {MAX_PIECES} pieces")
+    cnt = hi - lo
+    s = np.repeat(np.arange(n_sub, dtype=np.int64), cnt)
+    k = np.arange(int(cnt.sum()), dtype=np.int64) - np.repeat(
+        np.cumsum(cnt) - cnt, cnt)
+    pj = (s // (pc.blk // TILE)) * pc.j2_cap + lo[s] + k
+    cut = np.asarray(pc.ecuts, np.int64)[pj]
+    end = np.asarray(pc.eends, np.int64)[pj]
+    code = np.asarray(pc.eboffs, np.int64)[pj]
+    if not ((cut >= 0) & (cut <= end) & (end <= TILE)).all():
+        raise ValueError("v2 piece range outside its subtile")
+    nxt = np.flatnonzero(s[1:] == s[:-1])
+    if (cut[nxt + 1] < end[nxt]).any():
+        raise ValueError("v2 pieces of a subtile overlap or descend")
+    used = cut < end
+    if not ((code[used] >= 0) & (code[used] * LANES + end[used]
+                                 <= BANK_K * pc.bank_rows * LANES)).all():
+        raise ValueError("v2 piece reads a bank row outside the bank")
+
+
 def build_fused_plan(w: int, slots: int, lv: int, tier_vs, tile_idx, tier_idx,
-                     ext_idx, entry_idx) -> FusedClassPlan:
+                     ext_idx, entry_idx,
+                     pieces: ClassPieces | None = None) -> FusedClassPlan:
     """Check the window-local tables and pack them.
 
     ``tier_idx`` is a list of per-tier (n_win * V,) arrays.  Every index
     must stay inside its window: tile and entry slots in ``[0, w)``, tier
     sources in ``[0, V)``, pyramid indices in ``[0, pyr_len)`` (or -1).
+    ``pieces`` makes a v2 plan: its tables are checked, and the tile
+    permutation must be one in every window (its inverse is derived).
     """
     tier_vs = tuple(int(v) for v in tier_vs)
     n_win = slots // w
@@ -104,20 +206,33 @@ def build_fused_plan(w: int, slots: int, lv: int, tier_vs, tile_idx, tier_idx,
         if arr.size and not ((arr >= lo) & (arr < hi)).all():
             raise ValueError("fused-class index is not window-local")
 
+    v2 = {}
+    if pieces is not None:
+        _check_pieces(pieces, w, slots)
+        tile = np.asarray(tile_idx, np.int64)
+        win0 = np.arange(slots, dtype=np.int64) // w * w
+        inv = np.full(slots, -1, np.int64)
+        inv[win0 + tile] = np.arange(slots, dtype=np.int64) - win0
+        if (inv < 0).any():
+            raise ValueError("v2 tile table is not a permutation per window")
+        v2 = dict(
+            tile_inv=t(inv), etrips=t(pieces.etrips), ecuts=t(pieces.ecuts),
+            eboffs=t(pieces.eboffs), eends=t(pieces.eends),
+            j2_cap=int(pieces.j2_cap), blk=int(pieces.blk),
+            apv_lo=int(pieces.apv_lo), apv_hi=int(pieces.apv_hi),
+            bank_rows=int(pieces.bank_rows),
+        )
     cat = np.concatenate(tier_idx) if tier_idx else np.zeros(0, np.int32)
     return FusedClassPlan(
         tile_idx=t(tile_idx), tier_idx=t(cat), ext_idx=t(ext_idx),
         entry_idx=t(entry_idx), w=int(w), slots=int(slots), lv=int(lv),
-        tier_vs=tier_vs,
+        tier_vs=tier_vs, **v2,
     )
 
 
-def fused_class_plain(plan: FusedClassPlan, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K3 (the JAX tile permutation and
-    ``_fused_reference``, with window-local indices)."""
+def _reduce_plain(plan: FusedClassPlan, cur: torch.Tensor) -> torch.Tensor:
+    """Folds, tiers and extraction from the (n_win, w) fold slots F0."""
     n_win, w = plan.n_win, plan.w
-    tile = plan.tile_idx.reshape(n_win, w).long()
-    cur = torch.gather(x[: plan.slots].reshape(n_win, w), 1, tile)
     levels = [cur]
     for k in range(1, plan.lv + 1):
         half = w >> k
@@ -139,15 +254,143 @@ def fused_class_plain(plan: FusedClassPlan, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1)
 
 
-def fused_class_apply(plan: FusedClassPlan, x: torch.Tensor) -> torch.Tensor:
-    """K3: the (slots,) entry-ordered class arena from the class's
-    products ``x``, in arena order.
+def class_product_sources(plan: FusedClassPlan):
+    """Every product of a v2 class: its arena slot, its flat bank index and
+    its piece (an index into the class's piece tables and A values)."""
+    dev = plan.etrips.device
+    n_sub = plan.slots // TILE
+    lo = plan.etrips[:, 0].long()
+    cnt = plan.etrips[:, 1].long() - lo
+    s = torch.repeat_interleave(torch.arange(n_sub, device=dev), cnt)
+    k = torch.arange(s.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(cnt, 0) - cnt, cnt)
+    pj = (s // (plan.blk // TILE)) * plan.j2_cap + lo[s] + k
+    cut = plan.ecuts.long()[pj]
+    span = (plan.eends.long()[pj] - cut).clamp(min=0)
+    pi = torch.repeat_interleave(torch.arange(pj.numel(), device=dev), span)
+    p = cut[pi] + torch.arange(pi.numel(), device=dev) \
+        - torch.repeat_interleave(torch.cumsum(span, 0) - span, span)
+    return s[pi] * TILE + p, plan.eboffs.long()[pj][pi] * LANES + p, pj[pi]
+
+
+def expand_class_plain(plan: FusedClassPlan, bank: torch.Tensor,
+                       apv: torch.Tensor) -> torch.Tensor:
+    """The (slots,) products of a v2 class in arena order, from its piece
+    tables (0 in slots no piece covers)."""
+    slot, bidx, piece = class_product_sources(plan)
+    e = torch.zeros(plan.slots, dtype=bank.dtype, device=bank.device)
+    e[slot] = bank.reshape(-1)[bidx] * apv[piece]
+    return e
+
+
+def _check_v2_args(plan: FusedClassPlan, bank, apv) -> None:
+    if bank is None or apv is None:
+        raise ValueError("a v2 class expands from bank= and apv=")
+    if bank.shape != (BANK_K * plan.bank_rows, LANES):
+        raise ValueError(f"bank of shape {tuple(bank.shape)} for "
+                         f"{plan.bank_rows} bank rows")
+    if apv.numel() != plan.apv_hi - plan.apv_lo:
+        raise ValueError(f"{apv.numel()} A values for "
+                         f"{plan.apv_hi - plan.apv_lo} pieces")
+    if apv.dtype != bank.dtype:
+        raise TypeError("bank and apv must share a dtype")
+
+
+def fused_class_plain(plan: FusedClassPlan, x: torch.Tensor | None = None,
+                      bank: torch.Tensor | None = None,
+                      apv: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K3, in both modes (the JAX tile
+    permutation and ``_fused_reference``, with window-local indices)."""
+    if plan.expand:
+        _check_v2_args(plan, bank, apv)
+        x = expand_class_plain(plan, bank, apv)
+    tile = plan.tile_idx.reshape(plan.n_win, plan.w).long()
+    return _reduce_plain(
+        plan, torch.gather(x[: plan.slots].reshape(plan.n_win, plan.w), 1,
+                           tile))
+
+
+def fused_class_expand_plain(plan: FusedClassPlan, bank: torch.Tensor,
+                             apv: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3 v2 (:func:`fused_class_expand`)."""
+    return fused_class_plain(plan, None, bank, apv)
+
+
+def _scratch(plan: FusedClassPlan, dtype, device, extra: int = 0):
+    """None when the window's pyramid (plus ``extra`` bytes of static
+    shared memory) fits the block's shared memory, else a global scratch
+    buffer of one pyramid per window."""
+    el = torch.empty(0, dtype=dtype).element_size()
+    if plan.pyr_len * el + extra <= cuda_lib.max_smem_optin(device.index):
+        return None
+    return torch.empty(plan.n_win * plan.pyr_len, dtype=dtype, device=device)
+
+
+def _tier_widths(plan: FusedClassPlan):
+    return (ctypes.c_int * max(len(plan.tier_vs), 1))(*plan.tier_vs)
+
+
+def fused_class_expand(plan: FusedClassPlan, bank: torch.Tensor,
+                       apv: torch.Tensor) -> torch.Tensor:
+    """K3 v2: the (slots,) entry-ordered class arena of a v2 class, its
+    products formed in the kernel from ``bank`` and ``apv`` (the class's
+    slice of the per-piece A values).
+
+    CPU tensors take :func:`fused_class_expand_plain`; CUDA tensors launch
+    the kernel (``csrc/fused_class.cu``) or raise.
+    """
+    if not plan.expand:
+        raise ValueError("fused_class_expand needs a v2 plan")
+    _check_v2_args(plan, bank, apv)
+    if bank.device.type == "cpu":
+        return fused_class_expand_plain(plan, bank, apv)
+    cuda_lib.require_cuda(
+        "fused_class_expand", bank, apv, plan.etrips, plan.ecuts,
+        plan.eboffs, plan.eends, plan.tile_inv, plan.tier_idx, plan.ext_idx,
+        plan.entry_idx,
+    )
+    out = torch.empty(plan.slots, dtype=bank.dtype, device=bank.device)
+    if not plan.slots:
+        return out
+    with torch.cuda.device(bank.device):
+        el = bank.element_size()
+        scratch = _scratch(plan, bank.dtype, bank.device,
+                           MAX_PIECES * (12 + el))
+        rc = cuda_lib.entry("nsp_fused_class_v2", bank.dtype)(
+            cuda_lib.ptr(bank), cuda_lib.ptr(apv), cuda_lib.ptr(plan.etrips),
+            cuda_lib.ptr(plan.ecuts), cuda_lib.ptr(plan.eboffs),
+            cuda_lib.ptr(plan.eends), cuda_lib.ptr(plan.tile_inv),
+            cuda_lib.ptr(out), cuda_lib.ptr(plan.ext_idx),
+            cuda_lib.ptr(plan.entry_idx), cuda_lib.ptr(plan.tier_idx),
+            plan.n_win, plan.w, plan.lv, len(plan.tier_vs),
+            _tier_widths(plan),
+            None if scratch is None else cuda_lib.ptr(scratch),
+            plan.pyr_len, plan.blk // TILE, plan.j2_cap,
+            cuda_lib.stream(bank),
+        )
+    cuda_lib.check(rc, "fused_class_expand")
+    fused_class_expand.launches += 1
+    return out
+
+
+fused_class_expand.launches = 0
+
+
+def fused_class_apply(plan: FusedClassPlan, x: torch.Tensor | None = None,
+                      bank: torch.Tensor | None = None,
+                      apv: torch.Tensor | None = None) -> torch.Tensor:
+    """K3: the (slots,) entry-ordered class arena.  v1 (``plan.expand``
+    false): from the class's products ``x``, in arena order.  v2: from
+    ``bank`` and ``apv`` (:func:`fused_class_expand`).
 
     CPU tensors take :func:`fused_class_plain`; CUDA tensors launch the
     kernel (``csrc/fused_class.cu``) or raise.
     """
-    if x.numel() < plan.slots:
-        raise ValueError(f"{x.numel()} products for {plan.slots} slots")
+    if plan.expand:
+        return fused_class_expand(plan, bank, apv)
+    if x is None or x.numel() < plan.slots:
+        raise ValueError(f"{0 if x is None else x.numel()} products for "
+                         f"{plan.slots} slots")
     if x.device.type == "cpu":
         return fused_class_plain(plan, x)
     x = x[: plan.slots]
@@ -159,18 +402,12 @@ def fused_class_apply(plan: FusedClassPlan, x: torch.Tensor) -> torch.Tensor:
     if not plan.slots:
         return out
     with torch.cuda.device(x.device):
-        smem = plan.pyr_len * x.element_size()
-        scratch = None
-        if smem > cuda_lib.max_smem_optin(x.device.index):
-            scratch = torch.empty(
-                plan.n_win * plan.pyr_len, dtype=x.dtype, device=x.device
-            )
-        vs = (ctypes.c_int * max(len(plan.tier_vs), 1))(*plan.tier_vs)
+        scratch = _scratch(plan, x.dtype, x.device)
         rc = cuda_lib.entry("nsp_fused_class", x.dtype)(
             cuda_lib.ptr(x), cuda_lib.ptr(out), cuda_lib.ptr(plan.tile_idx),
             cuda_lib.ptr(plan.ext_idx), cuda_lib.ptr(plan.entry_idx),
             cuda_lib.ptr(plan.tier_idx),
-            plan.n_win, plan.w, plan.lv, len(plan.tier_vs), vs,
+            plan.n_win, plan.w, plan.lv, len(plan.tier_vs), _tier_widths(plan),
             None if scratch is None else cuda_lib.ptr(scratch),
             plan.pyr_len, cuda_lib.stream(x),
         )

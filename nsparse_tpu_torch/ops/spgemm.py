@@ -327,6 +327,8 @@ def plan_from_numpy(arrays: dict, extras: dict, expand) -> SpgemmPlan:
     ``expand`` — the run descriptors — comes from the port's own planner.
     The JAX indices are class-global; they are converted to window-local
     ones here, with the same checks ``build_window_structure`` applies.
+    The index form is the JAX package's v1 plan (its v2 plans carry routed
+    masks instead of indices), so the converted plan is v1.
     """
     from nsparse_tpu_torch.ops.kernels.runcopy import build_runcopy_plan
     from nsparse_tpu_torch.ops.kernels.shuffle import build_shuffle_plan
@@ -383,6 +385,13 @@ def plan_from_numpy(arrays: dict, extras: dict, expand) -> SpgemmPlan:
         fb_off=int(arrays["fb_off"]),
         fb_len=int(arrays["fb_len"]),
         n_compact=int(arrays["n_compact"]),
+        pw=None,
+        b8_idx=int32_tensor(np.zeros(0)),
+        apv_idx=int32_tensor(np.zeros(0)),
+        fused_expand=False,
+        bank_rows=0,
+        nnz_a=expand.nnz_a,
+        nnz_b=expand.nnz_b,
     )
     return SpgemmPlan(
         c_rpt=int32_tensor(arrays["c_rpt"]),
@@ -400,13 +409,14 @@ def _check_numeric_inputs(plan: SpgemmPlan, a: CSR, b: CSR) -> None:
         raise TypeError(f"values must be float32 or float64, got {a.val.dtype}")
     if a.val.dtype != b.val.dtype:
         raise TypeError("A and B values must share a dtype")
-    e = plan.win.expand
-    if (a.nnz, b.nnz) != (e.nnz_a, e.nnz_b):
+    w = plan.win
+    if (a.nnz, b.nnz) != (w.nnz_a, w.nnz_b):
         raise ValueError(
-            f"plan built for nnz ({e.nnz_a}, {e.nnz_b}), "
+            f"plan built for nnz ({w.nnz_a}, {w.nnz_b}), "
             f"got ({a.nnz}, {b.nnz})"
         )
-    devs = {a.val.device, b.val.device, plan.c_rpt.device, e.aidx.device}
+    devs = {a.val.device, b.val.device, plan.c_rpt.device,
+            w.merge.src_off.device}
     if len(devs) != 1:
         raise ValueError(f"plan and values on different devices: {devs}")
 

@@ -10,10 +10,19 @@ capability go to the fallback pool (slab classes, ``_build_slab_structure``).
 
 The host planner below is the JAX package's arithmetic, kept array for
 array so both packages build the same plan.  What it drops is what only a
-TPU needs: Benes/Clos mask routing, the fused kernel's piece tables and
-the v2 in-kernel expansion tables.  The numeric phase is the JAX v1 form:
-K2 expansion -> per class K3 fused reduction (reading through the tile
-permutation) -> fallback pool (K1, slab reduce, K1) -> K4 merge run copy.
+TPU needs: Benes/Clos mask routing (the port reads every permutation as
+an index table) and the fused kernel's extraction piece tables.  It
+builds the JAX package's two numeric forms, by the JAX rule: v2 when the
+pre-rolled B bank fits ``FUSED_BANK_BUDGET`` (the port's plans are always
+built for the card), else v1 (and always v1 at a budget of 0):
+
+- v1: K2 expansion of the whole arena -> per class K3 fused reduction
+  (reading through the tile permutation) -> fallback pool (K1, slab
+  reduce, K1) -> K4 merge run copy;
+- v2: K11 builds the bank and one K1 gathers the per-piece A values
+  (delivery) -> per class K3 expands its products in the kernel (classes)
+  -> the fallback pool's products through the piece route (K1, K2 piece
+  mode, K12), then K1, slab reduce, K1 (fallback) -> K4 (merge).
 """
 
 from __future__ import annotations
@@ -25,11 +34,25 @@ import numpy as np
 import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
-from nsparse_tpu_torch.ops.kernels import piecewise, runcopy, shuffle, window_fused
-from nsparse_tpu_torch.ops.kernels.piecewise import ExpandPlan, build_expand_plan
+from nsparse_tpu_torch.ops.kernels import (
+    gather_tiles,
+    piecewise,
+    runcopy,
+    shuffle,
+    window_fused,
+)
+from nsparse_tpu_torch.ops.kernels.piecewise import (
+    BIAS,
+    ExpandPlan,
+    PiecewisePlan,
+    bank_rows_for,
+    build_expand_plan,
+    build_piecewise_plan,
+)
 from nsparse_tpu_torch.ops.kernels.runcopy import RunCopyPlan, build_runcopy_plan
 from nsparse_tpu_torch.ops.kernels.shuffle import ShufflePlan, build_shuffle_plan
 from nsparse_tpu_torch.ops.kernels.window_fused import (
+    ClassPieces,
     FusedClassPlan,
     build_fused_plan,
     level_widths,
@@ -43,6 +66,10 @@ CLS_K = (1, 2, 4, 8)  # entry classes: fold level 0..3, then DEEP (len >= 9)
 DEEP = 4
 MAX_TIERS = 8
 BLK_MIN = 65536       # class slots are padded to a multiple of this
+# the v2 form needs the pre-rolled B bank (16 copies of 128 f32 lanes per
+# row) within this budget; above it the plan takes the v1 form
+FUSED_BANK_BUDGET = 11 * 2**20
+TILE = piecewise.TILE
 # entry lengths coverable per width (tier arenas V = W/4^(t-1) >= 256)
 LEN_CAPS = ((64, 1024), (512, 4096), (4096, 16384))
 LEN_MAX = 4096
@@ -164,33 +191,99 @@ class WindowStructure:
     """Device tables of the window numeric phase.
 
     Attributes:
-      expand: run descriptors of the product arena (K2).
+      expand: v1: run descriptors of the product arena (K2); None in v2.
       fused: per active class, the fused reduction (K3), tile permutation
-        into fold slots included.
+        into fold slots included; in v2 with the class's piece tables.
       merge: the fixed-destination run copy assembling ``c_val`` from the
         class arenas and the fallback segment (K4).
       fb_shuffle / fb_lvl_idx / fb_perm / fb_levels: fallback pool (None /
         () when no row falls back): products -> slab classes (K1), class
         reduction, slab totals -> entry-ordered segment (K1).
+      pw: v2: the piece tables of the fallback pool's products (None in
+        v1, or when no row falls back).
+      b8_idx: v2: (b8_len,) int32 ``b.val`` index of each 8-aligned B
+        table slot (-1 = zero), the bank's source (empty in v1).
+      apv_idx: v2: (sum of the classes' pieces,) int32 ``a.val`` index of
+        each piece of the class tables, classes concatenated (-1 = zero;
+        each class reads ``[apv_lo, apv_hi)``; empty in v1).
       class_geom: ((base, slots, width, levels), ...) per active class.
-      fb_off / fb_len: the fallback region of the product arena.
+      fb_off / fb_len: the fallback region of the product arena (v2: of
+        the piecewise arena, which holds only the fallback pool).
       n_compact: total class-arena length (merge source prefix).
+      fused_expand: the v2 form; bank_rows: the bank's rows (both forms,
+        as in the JAX plan).
+      nnz_a / nnz_b: the value-array sizes the plan was built for.
     """
 
-    expand: ExpandPlan
+    expand: ExpandPlan | None
     fused: Tuple[FusedClassPlan, ...]
     merge: RunCopyPlan
     fb_shuffle: ShufflePlan | None
     fb_lvl_idx: Tuple[torch.Tensor, ...]
     fb_perm: ShufflePlan | None
+    pw: PiecewisePlan | None
+    b8_idx: torch.Tensor
+    apv_idx: torch.Tensor
     class_geom: Tuple
     fb_levels: Tuple
     fb_off: int
     fb_len: int
     n_compact: int
+    fused_expand: bool
+    bank_rows: int
+    nnz_a: int
+    nnz_b: int
 
     def to(self, device) -> "WindowStructure":
         return to_device(self, device)
+
+
+def _class_pieces(ers, erb, era, slots: int, blk: int, bank_rows: int,
+                  nnz_a: int):
+    """The v2 piece tables of one class (the JAX planner's, flat): the
+    expansion runs ``ers`` (class-local starts, ascending), ``erb`` (table
+    offsets) and ``era`` (``a.val`` indices) cut at every 1024-slot
+    subtile.  Returns ``(etrips, ecuts, eboffs, eends, eaidx, j2_cap)``."""
+    n_steps = slots // blk
+    subs = blk // TILE
+    n_sub = n_steps * subs
+    sub_b = np.arange(n_sub, dtype=np.int64) * TILE
+    efirst = np.searchsorted(ers, sub_b, side="right") - 1
+    starts_in = np.bincount(np.minimum(ers // TILE, n_sub - 1),
+                            minlength=n_sub)
+    at_base = np.zeros(n_sub, dtype=bool)
+    at_base[ers[ers % TILE == 0] // TILE] = True
+    ecount = starts_in + (~at_base).astype(np.int64)
+    cnt_step = ecount.reshape(n_steps, subs)
+    j2_cap = max(128, 1 << (max(int(cnt_step.sum(axis=1).max(initial=0)), 1)
+                            - 1).bit_length())
+    ecuts = np.zeros((n_steps, j2_cap), np.int64)
+    eboffs = np.zeros((n_steps, j2_cap), np.int64)
+    eaidx = np.full((n_steps, j2_cap), nnz_a, np.int64)
+    eends = np.full((n_steps, j2_cap), TILE, np.int64)
+    off_in_step = np.concatenate([
+        np.zeros((n_steps, 1), np.int64), np.cumsum(cnt_step, axis=1)[:, :-1],
+    ], axis=1).reshape(-1)
+    etrips = np.stack([off_in_step, off_in_step + ecount], axis=1)
+    # piece k of subtile s is run efirst[s] + k
+    tsub = np.repeat(np.arange(n_sub, dtype=np.int64), ecount)
+    kk = np.arange(int(ecount.sum()), dtype=np.int64) - np.repeat(
+        np.cumsum(ecount) - ecount, ecount)
+    rr = np.minimum(efirst[tsub] + kk, ers.size - 1)
+    cut = np.clip(ers[rr] - sub_b[tsub], 0, TILE)
+    eff = erb[rr] - ers[rr] + sub_b[tsub] + BIAS
+    stp = tsub // subs
+    pj = off_in_step[tsub] + kk
+    ecuts[stp, pj] = cut
+    eboffs[stp, pj] = (eff % LANES) // 8 * bank_rows + eff // LANES
+    eaidx[stp, pj] = era[rr]
+    # a piece ends where the next piece of its subtile starts
+    eend = np.full(cut.shape, TILE, np.int64)
+    same = tsub[1:] == tsub[:-1]
+    eend[:-1][same] = cut[1:][same]
+    eends[stp, pj] = eend
+    return (etrips, ecuts.reshape(-1), eboffs.reshape(-1), eends.reshape(-1),
+            eaidx.reshape(-1), j2_cap)
 
 
 def build_window_structure(
@@ -721,16 +814,44 @@ def build_window_structure(
     keep = seg8 > 0
     n_gap = gap_run_start.size
     run_start = np.concatenate([run_start_ae[keep], gap_run_start])
+    run_aidx = np.concatenate([
+        np.flatnonzero(keep), np.full(n_gap, nnz_a, np.int64)
+    ])
     ordr = np.argsort(run_start, kind="stable")
-    expand = build_expand_plan(
-        run_start[ordr],
-        np.concatenate([rpt_b[col_a[keep]], np.zeros(n_gap, np.int64)])[ordr],
-        np.concatenate([seg_len[keep], np.zeros(n_gap, np.int64)])[ordr],
-        np.concatenate([
-            np.flatnonzero(keep), np.full(n_gap, nnz_a, np.int64)
-        ])[ordr],
-        fb_base + fb_len, nnz_a, nnz_b,
-    )
+    rs_s = run_start[ordr]
+    ra_s = run_aidx[ordr]
+
+    # --- the 8-aligned B table and the numeric form -----------------------
+    deg8 = -(-deg_b // 8) * 8
+    rpt8 = np.zeros(deg8.size + 1, dtype=np.int64)
+    np.cumsum(deg8, out=rpt8[1:])
+    b8_len = int(rpt8[-1])
+    bank_rows = bank_rows_for(b8_len)
+    # the JAX rule, for plans built for the accelerator: the bank's f32
+    # bytes (16 copies x 128 lanes x 4 bytes per row) within the budget
+    fused_expand = bank_rows * 16 * 512 <= FUSED_BANK_BUDGET
+    expand = pw = None
+    b8_idx = np.zeros(0, np.int64)
+    if fused_expand:
+        rowb = np.repeat(np.arange(deg8.size, dtype=np.int64), deg8)
+        off_in = np.arange(b8_len, dtype=np.int64) - rpt8[rowb]
+        b8_idx = np.where(off_in < deg_b[rowb], rpt_b[rowb] + off_in, -1)
+        rb_s = np.concatenate([
+            rpt8[col_a[keep]], np.zeros(n_gap, np.int64)
+        ])[ordr]
+        fsel = rs_s >= fb_base
+        if fsel.any():
+            pw = build_piecewise_plan(
+                rs_s[fsel] - fb_base, rb_s[fsel], ra_s[fsel], fb_len, nnz_a,
+                b8_len,
+            )
+    else:
+        expand = build_expand_plan(
+            rs_s,
+            np.concatenate([rpt_b[col_a[keep]], np.zeros(n_gap, np.int64)])[ordr],
+            np.concatenate([seg_len[keep], np.zeros(n_gap, np.int64)])[ordr],
+            ra_s, fb_base + fb_len, nnz_a, nnz_b,
+        )
 
     # --- tier-1 permutation: products -> fold slots, per class ----------
     lens64 = lens.astype(np.int64)
@@ -764,6 +885,8 @@ def build_window_structure(
     fused_plans = []
     class_arena_base = {}
     arena_cur = 0
+    eaidx_all = []
+    apv_off = 0
     for ci, ((base, slots, W, lv), j) in enumerate(zip(class_geom, active)):
         class_arena_base[j] = arena_cur
         tier_vs = [V for _, V in tier_perm_cls[ci]]
@@ -795,14 +918,29 @@ def build_window_structure(
             ewl * W + (phi_w[ew] + rank_c[msk]) % W,
             ewl * W + pos_in_E[msk], slots,
         )
+        pieces = None
+        if fused_expand:
+            # the class's expansion runs, cut into per-subtile pieces
+            esel = (rs_s >= base) & (rs_s < base + slots)
+            blk = max(BLK_MIN, W)
+            etrips, ecuts, eboffs, eends, eaidx, j2_cap = _class_pieces(
+                rs_s[esel] - base, rb_s[esel], ra_s[esel], slots, blk,
+                bank_rows, nnz_a,
+            )
+            pieces = ClassPieces(etrips, ecuts, eboffs, eends, j2_cap, blk,
+                                 apv_off, apv_off + eaidx.size, bank_rows)
+            eaidx_all.append(eaidx)
+            apv_off += eaidx.size
         fused_plans.append(build_fused_plan(
             W, slots, lv, tier_vs,
             _local(perm[base : base + slots] - base, W, "tile"),
             [_local(p, V, "tier") for p, V in tier_perm_cls[ci]],
-            ext, _local(eperm, W, "entry"),
+            ext, _local(eperm, W, "entry"), pieces,
         ))
         arena_cur += slots
     arena_len = int(arena_cur)
+    eaidx_cat = np.concatenate(eaidx_all) if eaidx_all \
+        else np.zeros(0, np.int64)
 
     # --- fallback pool: whole rows beyond window capability -------------
     fb_entry_ids = np.flatnonzero(win_of_entry < 0)
@@ -889,66 +1027,132 @@ def build_window_structure(
         fb_shuffle=fb_shuffle,
         fb_lvl_idx=fb_lvl_idx,
         fb_perm=fb_perm,
+        pw=pw,
+        b8_idx=int32_tensor(b8_idx),
+        apv_idx=int32_tensor(np.where(eaidx_cat < nnz_a, eaidx_cat, -1)),
         class_geom=tuple(class_geom),
         fb_levels=fb_levels,
-        fb_off=int(fb_base),
+        fb_off=0 if fused_expand else int(fb_base),
         fb_len=int(fb_len),
         n_compact=arena_len,
+        fused_expand=bool(fused_expand),
+        bank_rows=int(bank_rows),
+        nnz_a=int(nnz_a),
+        nnz_b=int(nnz_b),
     )
 
 
+def apv_values(w: WindowStructure, a_val: torch.Tensor,
+               gather=shuffle.gather) -> torch.Tensor:
+    """v2: the per-piece A values of every class's piece tables, classes
+    concatenated (0 for gap and table-pad pieces) — one K1 gather."""
+    return gather(a_val, w.apv_idx)
+
+
 class NumericOps(NamedTuple):
-    """The four kernels of the window numeric phase, by role."""
+    """The kernels of the window numeric phase, by role: v1 runs gather,
+    expand, fused and runcopy; v2 runs bank, gather, fused_v2, pieces,
+    tiles8 and runcopy."""
 
     gather: object
     expand: object
     fused: object
     runcopy: object
+    bank: object
+    fused_v2: object
+    pieces: object
+    tiles8: object
 
 
 KERNEL_OPS = NumericOps(
     shuffle.gather, piecewise.piecewise_expand,
-    window_fused.fused_class_apply, runcopy.runcopy,
+    window_fused.fused_class_apply, runcopy.runcopy, piecewise.build_bank,
+    window_fused.fused_class_expand, piecewise.expand_pieces,
+    gather_tiles.gather_tiles8,
 )
 PLAIN_OPS = NumericOps(
     shuffle.gather_plain, piecewise.expand_plain,
     window_fused.fused_class_plain, runcopy.runcopy_plain,
+    piecewise.build_bank_plain, window_fused.fused_class_expand_plain,
+    piecewise.expand_pieces_plain, gather_tiles.gather_tiles8_plain,
 )
+
+
+def v2_delivery(w: WindowStructure, a_val: torch.Tensor, b_val: torch.Tensor,
+                ops: NumericOps = KERNEL_OPS):
+    """v2 delivery: the bank (K11) and the per-piece A values (K1)."""
+    return (ops.bank(w.b8_idx, w.bank_rows, b_val),
+            apv_values(w, a_val, ops.gather))
+
+
+def v2_classes(w: WindowStructure, bank: torch.Tensor, apv: torch.Tensor,
+               ops: NumericOps = KERNEL_OPS) -> list:
+    """v2 classes: each class's entry-ordered arena (K3 v2)."""
+    return [ops.fused_v2(fp, bank, apv[fp.apv_lo : fp.apv_hi])
+            for fp in w.fused]
+
+
+def fallback_segment(w: WindowStructure, prod: torch.Tensor,
+                     ops: NumericOps = KERNEL_OPS) -> torch.Tensor:
+    """The fallback rows' entry-ordered merge segment from the fallback
+    pool's products ``prod`` (K1, slab reduce, K1)."""
+    from nsparse_tpu_torch.ops.spgemm import slab_class_reduce
+
+    fb_in = prod[w.fb_off : w.fb_off + w.fb_len]
+    fb_res = slab_class_reduce(
+        ops.gather(fb_in, w.fb_shuffle.idx), w.fb_levels, w.fb_lvl_idx
+    )
+    fb_seg = w.merge.n_src - w.n_compact
+    fb_res = torch.nn.functional.pad(
+        fb_res, (0, max(fb_seg - fb_res.numel(), 0))
+    )
+    return ops.gather(fb_res, w.fb_perm.idx)
+
+
+def v2_fallback(w: WindowStructure, a_val: torch.Tensor, bank: torch.Tensor,
+                ops: NumericOps = KERNEL_OPS) -> torch.Tensor:
+    """v2 fallback: the pool's products through the piece route (K1, K2
+    piece mode, K12), then :func:`fallback_segment`."""
+    prod = piecewise.expand_from_bank(w.pw, a_val, bank, ops.gather,
+                                      ops.pieces, ops.tiles8)
+    return fallback_segment(w, prod, ops)
+
+
+def merge_segments(plan, segs: list, ops: NumericOps = KERNEL_OPS):
+    """``c_val`` from the class arenas and the fallback segment (K4)."""
+    res = torch.cat(segs) if len(segs) > 1 else segs[0]
+    c_val = ops.runcopy(plan.win.merge, res)[: plan.c_capacity]
+    c_val[plan.c_nnz :] = 0  # the capacity tail past nnz(C) holds zeros
+    return c_val
 
 
 def spgemm_numeric_window(plan, a: CSR, b: CSR,
                           ops: NumericOps = KERNEL_OPS) -> CSR:
-    """Window numeric phase: K2 expansion -> per class K3 fused reduction
-    -> fallback pool -> K4 merge.
+    """Window numeric phase, in the plan's form.  v1: K2 expansion -> per
+    class K3 fused reduction -> fallback pool -> K4 merge.  v2: delivery
+    (K11, K1) -> classes (K3 v2) -> fallback (piece route, K1, slab
+    reduce, K1) -> merge (K4).
 
     ``ops=PLAIN_OPS`` runs the plain PyTorch version of every kernel on
     the inputs' device — the reference the kernels are timed and checked
     against on the card.
     """
-    from nsparse_tpu_torch.ops.spgemm import slab_class_reduce
-
     w: WindowStructure = plan.win
-    prod = ops.expand(w.expand, a.val, b.val)
-    segs = []
-    for fp, (base, slots, _, _) in zip(w.fused, w.class_geom):
-        segs.append(ops.fused(fp, prod[base : base + slots]))
-    if w.fb_shuffle is not None:
-        fb_in = prod[w.fb_off : w.fb_off + w.fb_len]
-        fb_res = slab_class_reduce(
-            ops.gather(fb_in, w.fb_shuffle.idx), w.fb_levels, w.fb_lvl_idx
-        )
-        fb_seg = w.merge.n_src - w.n_compact
-        fb_res = torch.nn.functional.pad(
-            fb_res, (0, max(fb_seg - fb_res.numel(), 0))
-        )
-        segs.append(ops.gather(fb_res, w.fb_perm.idx))
-    res = torch.cat(segs) if len(segs) > 1 else segs[0]
-    c_val = ops.runcopy(w.merge, res)[: plan.c_capacity]
-    c_val[plan.c_nnz :] = 0  # the capacity tail past nnz(C) holds zeros
+    if w.fused_expand:
+        bank, apv = v2_delivery(w, a.val, b.val, ops)
+        segs = v2_classes(w, bank, apv, ops)
+        if w.fb_shuffle is not None:
+            segs.append(v2_fallback(w, a.val, bank, ops))
+    else:
+        prod = ops.expand(w.expand, a.val, b.val)
+        segs = [ops.fused(fp, prod[base : base + slots])
+                for fp, (base, slots, _, _) in zip(w.fused, w.class_geom)]
+        if w.fb_shuffle is not None:
+            segs.append(fallback_segment(w, prod, ops))
     return CSR(
         rpt=plan.c_rpt,
         col=plan.c_col,
-        val=c_val,
+        val=merge_segments(plan, segs, ops),
         shape=plan.shape,
         nnz=plan.c_nnz,
     )

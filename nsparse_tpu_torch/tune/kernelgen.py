@@ -12,6 +12,17 @@ later work (ROADMAP).
 WIN_MIN = 1024        # smallest window width (slots)
 N_WIN_CLASSES = 6     # window widths WIN_MIN << j, j < N_WIN_CLASSES
 
+# piece expansion from the pre-rolled B bank (ops/kernels/piecewise.py).
+# Parity values: the JAX CPU config's, so the port's piece tables and its
+# choice of the v2 numeric form equal the JAX package's.  BANK_K copies of
+# the 8-aligned B table, each rolled 8 slots further; a bank of more than
+# BANK_ROWS_MAX rows takes the unaligned piece mode (not ported); each
+# live 1024-slot subtile of the piecewise arena joins the first class whose
+# piece budget covers its piece count.
+BANK_K = 16
+BANK_ROWS_MAX = 1600
+PW_J_CLASSES = (2, 4, 8, 16, 32, 64, 128)
+
 # flat-gather class ladder, cheapest first: ("band", D) routes
 # (BAND_TILE_ROWS, 128) supertiles whose idx - position spans < D;
 # ("win", W) routes supertiles of WIN_SUB (WIN_TILE_ROWS, 128) subtiles

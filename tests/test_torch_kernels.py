@@ -19,6 +19,9 @@ import nsparse_tpu.ops.spgemm_window as jwin
 from nsparse_tpu.formats.csr import CSR as JCSR
 from nsparse_tpu.io.generate import rmat_csr as jrmat
 from nsparse_tpu.ops.kernels import shuffle_pallas as jsh
+from nsparse_tpu.ops.kernels.flat_gather import build_flat_gather_plan
+from nsparse_tpu.ops.kernels.gather_pallas import gather_tiles8 as j_tiles8
+from nsparse_tpu.ops.kernels.piecewise import build_bank as j_build_bank
 from nsparse_tpu.ops.kernels.piecewise import piecewise_expand as j_expand
 from nsparse_tpu.ops.kernels.runcopy import runcopy as j_runcopy
 from nsparse_tpu.ops.kernels.window_fused import fused_class_apply as j_fused
@@ -26,8 +29,15 @@ from nsparse_tpu.ops.spgemm import slab_class_reduce as j_slab_reduce
 from nsparse_tpu.ops.spgemm import spgemm_plan as j_plan
 
 import nsparse_tpu_torch as nt
+import nsparse_tpu_torch.ops.spgemm_window as twin
 import nsparse_tpu_torch.tune.kernelgen as tkg
-from nsparse_tpu_torch.ops.kernels import piecewise, runcopy, shuffle, window_fused
+from nsparse_tpu_torch.ops.kernels import (
+    gather_tiles,
+    piecewise,
+    runcopy,
+    shuffle,
+    window_fused,
+)
 from nsparse_tpu_torch.ops.spgemm import slab_class_reduce
 
 DTYPES = [np.float32, np.float64]
@@ -36,11 +46,14 @@ FOLD_RTOL = {np.float32: 1e-6, np.float64: 1e-12}
 
 @pytest.fixture(scope="module")
 def plans():
-    """JAX and port window plans of R-MAT-8 (deep tiers, several classes)."""
+    """JAX and port window plans of R-MAT-8 (deep tiers, several classes),
+    the port's in the v1 form that the JAX index-form plan takes."""
     ja = jrmat(8, edge_factor=8, dtype=np.float64, seed=2)
     ta = nt.rmat_csr(8, edge_factor=8, dtype=np.float64, seed=2)
-    return ja, ta, j_plan(ja, ja, shuffle=True, layout="window"), \
-        nt.spgemm_plan(ta, ta)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(twin, "FUSED_BANK_BUDGET", 0)
+        tp = nt.spgemm_plan(ta, ta)
+    return ja, ta, j_plan(ja, ja, shuffle=True, layout="window"), tp
 
 
 def _vals(n, dtype, seed):
@@ -196,3 +209,149 @@ def test_plan_guards_reject_bad_tables():
             **ok, tile_idx=np.zeros(8), ext_idx=np.array([0, 1, 2, 4] * 2),
             entry_idx=np.zeros(8),
         )
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_build_bank_matches_jax(dtype):
+    """K11's plain version against the JAX build_bank (its off-TPU roll
+    form) bit for bit, on a table with -1 slots and an index past b.val."""
+    rng = np.random.default_rng(8)
+    b = _vals(3000, dtype, 9)
+    b8_idx = rng.integers(-1, 3000, 4000).astype(np.int32)
+    b8_idx[rng.random(4000) < 0.3] = -1
+    rows = piecewise.bank_rows_for(b8_idx.size)
+    want = np.asarray(j_build_bank(build_flat_gather_plan(b8_idx), rows,
+                                   jnp.asarray(b)))
+    got = piecewise.build_bank(torch.from_numpy(b8_idx), rows,
+                               torch.from_numpy(b))
+    assert got.shape == (piecewise.BANK_K * rows, 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    b8_idx[5] = 3000  # outside b.val: a zero, as a -1 slot
+    got = piecewise.build_bank(torch.from_numpy(b8_idx), rows,
+                               torch.from_numpy(b)).numpy().reshape(-1)
+    assert got[piecewise.BIAS + 5] == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_tiles8_matches_jax(dtype):
+    """K12's plain version against the JAX gather_tiles8 in interpret
+    mode, with repeated and zero-tile sources."""
+    rng = np.random.default_rng(12)
+    src = _vals(20 * 1024, dtype, 13)
+    src[-1024:] = 0
+    ids = rng.integers(0, 20, 24).astype(np.int32)
+    ids[[3, 7]] = 19
+    want = np.asarray(j_tiles8(jnp.asarray(src).reshape(-1, 128),
+                               jnp.asarray(ids), 24)).reshape(-1)
+    got = gather_tiles.gather_tiles8(torch.from_numpy(src),
+                                     torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+    out = gather_tiles.gather_tiles8(torch.from_numpy(src),
+                                     torch.tensor([-1, 20, 2], dtype=torch.int32))
+    assert not out[:2048].any()
+    np.testing.assert_array_equal(out[2048:].numpy(), src[2048:3072])
+
+
+def test_expand_pieces_picks_the_last_piece():
+    """K2 piece mode's plain version on hand-made tables: each slot takes
+    the last piece that starts at or before it; a pad subtile (every cut
+    at 1024) is zeros."""
+    bank = torch.arange(16 * 64 * 128, dtype=torch.float64).reshape(-1, 128)
+    cuts = torch.tensor([0, 100, 1024, 1024, 1024, 1024], dtype=torch.int32)
+    boffs = torch.tensor([3, 64 + 5, 0, 0, 0, 0], dtype=torch.int32)
+    apv = torch.tensor([2.0, -1.0, 7.0, 7.0, 7.0, 7.0], dtype=torch.float64)
+    out = torch.full((2048,), 9.0, dtype=torch.float64)
+    piecewise.expand_pieces(3, cuts, boffs, apv, bank, out)
+    p = torch.arange(1024, dtype=torch.float64)
+    want = torch.where(p < 100, 2.0 * (3 * 128 + p), -(69 * 128 + p))
+    assert torch.equal(out[:1024], want)
+    assert not out[1024:].any()
+
+
+def test_v2_wrappers_raise_off_cpu_without_cuda():
+    """K11, K12, K2 piece mode and K3 v2 take their plain versions only
+    for CPU tensors; any other device launches the kernel or raises."""
+    a = nt.rmat_csr(8, edge_factor=8, dtype=np.float64, seed=2)
+    w = nt.spgemm_plan(a, a).win
+    assert w.fused_expand
+    wm = w.to("meta")
+    fp = wm.fused[0]
+    val = a.val.to("meta")
+    bank = torch.zeros(piecewise.BANK_K * w.bank_rows, 128, device="meta",
+                       dtype=torch.float64)
+    apv = torch.zeros(fp.apv_hi - fp.apv_lo, device="meta",
+                      dtype=torch.float64)
+    calls = [
+        lambda: piecewise.build_bank(wm.b8_idx, w.bank_rows, val),
+        lambda: gather_tiles.gather_tiles8(
+            torch.zeros(2048, device="meta"),
+            torch.zeros(2, dtype=torch.int32, device="meta")),
+        lambda: piecewise.expand_pieces(
+            2, wm.fused[0].ecuts[:4], wm.fused[0].eboffs[:4], apv[:4], bank,
+            torch.zeros(2048, device="meta", dtype=torch.float64)),
+        lambda: window_fused.fused_class_apply(fp, bank=bank, apv=apv),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="must be on"):
+            call()
+    assert (piecewise.build_bank.launches, gather_tiles.gather_tiles8.launches,
+            piecewise.expand_pieces.launches,
+            window_fused.fused_class_expand.launches) == (0, 0, 0, 0)
+
+
+def _v2_tables(**bad):
+    """A one-window, two-subtile v2 class (W = 2048, one step) with its
+    pieces, one table entry replaced by ``bad``."""
+    ecuts = np.array([0, 512, 0, 0], np.int64)
+    eends = np.array([512, 1024, 1024, 1024], np.int64)
+    eboffs = np.array([0, 1, 2, 0], np.int64)
+    etrips = np.array([[0, 2], [2, 3]], np.int64)
+    tables = dict(etrips=etrips, ecuts=ecuts, eboffs=eboffs, eends=eends)
+    for key, (i, v) in bad.items():
+        tables[key] = tables[key].copy()
+        tables[key].reshape(-1)[i] = v
+    return window_fused.ClassPieces(
+        tables["etrips"], tables["ecuts"], tables["eboffs"], tables["eends"],
+        j2_cap=4, blk=2048, apv_lo=0, apv_hi=4, bank_rows=64)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (None, None),
+    (dict(etrips=(3, 5)), "leave their step"),
+    (dict(ecuts=(1, 1030)), "outside its subtile"),
+    (dict(eends=(1, 1025)), "outside its subtile"),
+    (dict(ecuts=(1, 400)), "overlap"),
+    (dict(eboffs=(2, 16 * 64 - 7)), "outside the bank"),
+])
+def test_v2_table_checks_reject_bad_tables(bad, match):
+    """build_fused_plan's v2 checks: pieces inside their step's region,
+    ``cut <= end <= 1024``, no overlap, bank rows inside the bank; and the
+    tile table must be a permutation per window."""
+    w = 2048
+    ident = np.arange(w)
+    args = dict(w=w, slots=w, lv=0, tier_vs=(), tier_idx=[],
+                tile_idx=ident, ext_idx=np.full(w, -1), entry_idx=ident)
+    if bad is None:
+        plan = window_fused.build_fused_plan(**args, pieces=_v2_tables())
+        assert plan.expand and torch.equal(plan.tile_inv, plan.tile_idx)
+        with pytest.raises(ValueError, match="not a permutation"):
+            window_fused.build_fused_plan(
+                **dict(args, tile_idx=np.zeros(w, np.int64)),
+                pieces=_v2_tables())
+        return
+    with pytest.raises(ValueError, match=match):
+        window_fused.build_fused_plan(**args, pieces=_v2_tables(**bad))
+
+
+def test_piecewise_plan_guards():
+    """build_piecewise_plan takes 8-aligned runs only, and a bank beyond
+    BANK_ROWS_MAX (the unaligned mode, not ported) raises."""
+    with pytest.raises(ValueError, match="8-aligned"):
+        piecewise.build_piecewise_plan([0, 12], [0, 8], [0, 1], 32, 2, 64)
+    with pytest.raises(NotImplementedError, match="unaligned"):
+        piecewise.build_piecewise_plan([0, 8], [0, 8], [0, 1], 32, 2,
+                                       piecewise.BANK_ROWS_MAX * 128)
+    plan = piecewise.build_piecewise_plan([0, 8], [0, 8], [0, 1], 16, 2, 16)
+    # subtile 0 holds the two runs and the pad run: the J = 4 class
+    assert [int(i.numel()) for i in plan.ids] == [0, 8, 0, 0, 0, 0, 0]
+    assert plan.arena_src.tolist() == [0] + [8] * 7

@@ -25,6 +25,7 @@ from nsparse_tpu.ops.spgemm import spgemm_numeric as j_numeric
 from nsparse_tpu.ops.spgemm import spgemm_plan as j_plan
 
 import nsparse_tpu_torch as nt
+import nsparse_tpu_torch.ops.spgemm_window as twin
 import nsparse_tpu_torch.tune.kernelgen as tkg
 from nsparse_tpu_torch.ops.kernels.window_fused import level_widths
 from nsparse_tpu_torch.ops.spgemm import plan_from_numpy
@@ -73,8 +74,11 @@ CASES = ["rmat9", "stencil28", "dense80", "fallback"]
 
 @pytest.fixture
 def window_classes(monkeypatch, request):
-    """The fallback-heavy case caps the window ladder at 1024 slots on
-    both sides, as tests/test_spgemm_window.py does."""
+    """The port's v1 form, which the JAX index-form plan takes off the
+    accelerator (tests/test_torch_window_v2.py holds v2); the
+    fallback-heavy case caps the window ladder at 1024 slots on both
+    sides, as tests/test_spgemm_window.py does."""
+    monkeypatch.setattr(twin, "FUSED_BANK_BUDGET", 0)
     if request.node.callspec.params.get("case") == "fallback":
         monkeypatch.setattr(jwin, "N_WIN_CLASSES", 2)
         monkeypatch.setattr(tkg, "N_WIN_CLASSES", 2)
@@ -247,3 +251,4 @@ def test_cli_spgemm_host_planner(capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "intermediate products" in out and out.rstrip().endswith("pass")
+    assert "numeric form: v2" in out
