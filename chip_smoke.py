@@ -45,7 +45,18 @@ Phases (any failure exits non-zero before the final line):
   6. windowed gather (K10) on 262,144 rows for windows 32, 128 and 1024,
      equal to its plain version and to ``torch.gather`` bit for bit (no
      path of the library calls it: it stands alone, as on the TPU);
-  7. each kernel against its plain PyTorch version on the card, on the
+  7. the tile copies: K6's scalar and vector branches against its plain
+     version (``torch.equal``, f32 and f64); K6 on the FEM value re-run
+     and K12 on R-MAT-14, by CUDA events, by the profiler's device time
+     and queued behind a device sleep, beside their bounds, and K6's
+     scalar branch on the same values;
+  8. launch cost: host µs per call of each step of the ctypes launch
+     path alone (old and new), of K12 and K6 through ``cuda_lib.launch``,
+     of K1 through the old path (the control) and of the PyTorch calls
+     that compute the same functions, at 1 tile and at the main path's
+     own calls: the median of LAUNCH_ROUNDS rounds of LAUNCH_REPS
+     back-to-back calls, every step in each round;
+  9. each kernel against its plain PyTorch version on the card, on the
      inputs its paths gave it, timed with CUDA events beside the plain
      version, one PyTorch call that computes the same function (where
      there is one) and the least time the card could take (its bound).
@@ -56,8 +67,11 @@ second-to-last line is the kernel table as JSON; the last line is
 """
 
 import contextlib
+import ctypes
 import dataclasses
+import glob
 import json
+import os
 import subprocess
 import sys
 import time
@@ -79,6 +93,10 @@ FEM_F64 = dict(FEM, n_nodes=512)  # the bench's FEM stage (bench.py:501)
 FEM_BSR = (1274, 6350, 2284, 2_395_136_000, 66_215_936)
 FEM_F64_BSR = (None, 750, 268, None, 8_004_096)
 WG_ROWS, WG_WINDOWS = 262_144, (32, 128, 1024)
+LAUNCH_REPS = 1000  # back-to-back calls per step of the launch-cost phase
+LAUNCH_ROUNDS = 5   # rounds of the launch-cost phase, every step in each
+CHECK_TILES = 16_384  # K6's vector-branch check: tiles of 1024 moved
+SLEEP_CYCLES = 50_000_000  # a device sleep of about 25 ms at 2 GHz
 # peak rates outside the tensor cores (NVIDIA H100 SXM data sheet), for
 # the operation bound of the two SpMV kernels
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
@@ -563,6 +581,34 @@ class Smoke:
             d2, il, v2 = dst.clone().view(-1, tile), ids.long(), \
                 vals.view(-1, tile)
             return lambda: d2.index_copy_(0, il, v2)
+        if k == "runcopy":
+            # the source slot of every output slot, 0 where no run
+            # covers it
+            plan, src = args
+            il = torch.zeros(plan.n_out, dtype=torch.long, device=src.device)
+            lens = plan.len.long()
+            total = int(lens.sum())
+            if total:
+                rid = torch.repeat_interleave(
+                    torch.arange(plan.n_runs, device=src.device), lens,
+                    output_size=total)
+                kin = torch.arange(total, device=src.device) \
+                    - (torch.cumsum(lens, 0) - lens)[rid]
+                il[plan.dst.long()[rid] + kin] = plan.src_off.long()[rid] + kin
+            return lambda: src[il]
+        if k == "build_bank":
+            # the bank's rolled source index, clamped into b_val
+            b8_idx, rows, b_val = args
+            n = rows * 128
+            j = torch.zeros(n, dtype=torch.long, device=b_val.device)
+            bias = self.piecewise.BIAS
+            j[bias: bias + b8_idx.numel()] = b8_idx.long().clamp(
+                0, max(b_val.numel() - 1, 0))
+            roll = (torch.arange(n, device=b_val.device)[None, :]
+                    + 8 * torch.arange(self.piecewise.BANK_K,
+                                       device=b_val.device)[:, None]) % n
+            il = j[roll].reshape(-1)
+            return lambda: b_val[il]
         if k == "spmv_bsr":
             a, x = args
             br, bc = a.blocksize
@@ -1150,6 +1196,257 @@ def windowed_gather_phase(s: Smoke) -> None:
               f"{np.mean(t['plain']):.4f} ms ({t['plain']})", flush=True)
 
 
+def profiled_device_ms(torch, fn, kernel: str, calls: int = 10):
+    """(mean device ms of one launch of the kernel named ``kernel...``,
+    launches recorded) as torch.profiler records ``calls`` calls of
+    ``fn``, each of which launches it once, behind a device sleep; (None,
+    0) when it records none in three windows (it drops device events on
+    this card's machine, some windows all of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window in which it recorded none is retried
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SLEEP_CYCLES)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and short_name(e.name).startswith(kernel)]
+        if us:
+            return sum(us) / len(us) / 1e3, len(us)
+    return None, 0
+
+
+def queued_device_ms(torch, fn, calls: int = 20):
+    """Device ms per call of ``fn``: CUDA events around ``calls`` calls
+    queued behind a device sleep, so that the host has issued them all
+    before the first one runs and the events time the device alone;
+    None when the host took longer than the sleep."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    stop.record()
+    stop.synchronize()
+    sleep_ms = start.elapsed_time(stop)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls if host_ms < sleep_ms else None
+
+
+def tile_copy_phase(s: Smoke) -> None:
+    """K6 and K12, the two tile copies.  K6's scalar branch (a tile of
+    1001 values, not whole 16-byte vectors; a ``dst`` view one element
+    past its allocation, not 16-byte aligned) and its vector branch
+    (CHECK_TILES tiles of 1024) held against its plain version with
+    ``torch.equal`` in f32 and f64.  Then, where the paths have run, K6
+    on the FEM value re-run's calls, the vector branch timed by CUDA
+    events, by the profiler's device time and queued behind a device
+    sleep, beside its bound, and the scalar branch on the same values
+    (``vals`` one element past an aligned allocation); and K12 on
+    R-MAT-14's call, the same three ways."""
+    torch = s.torch
+    from nsparse_tpu_torch.ops.kernels import gather_tiles as gt
+
+    rng = np.random.default_rng(SEED)
+    for dtype in (torch.float32, torch.float64):
+        for what, tile, n_dst, shift in (
+                ("scalar branch, tile 1001", 1001, 40, 0),
+                ("scalar branch, dst one element off", 1024, 40, 1),
+                ("vector branch", 1024, 2 * CHECK_TILES, 0)):
+            n_ids = n_dst // 2
+            ids = torch.from_numpy(rng.permutation(n_dst)[:n_ids].astype(
+                np.int32)).to(s.dev)
+            vals = torch.randn(n_ids * tile, dtype=dtype, device=s.dev)
+            dst = torch.randn(n_dst * tile + shift, dtype=dtype,
+                              device=s.dev)[shift:]
+            want = gt.scatter_tiles_plain(dst.clone(), ids, vals, tile)
+            ok = torch.equal(gt.scatter_tiles(dst, ids, vals, tile), want)
+            print(f"K6 {what}, {n_ids} tiles, {dtype}: equal to its plain "
+                  f"version: {'pass' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K6 {what} ({dtype}) differs from its plain version")
+
+    calls = [s.fresh("scatter_tiles", a) for p, a in s.calls["scatter_tiles"]
+             if p == "fem-bsr-rerun"]
+    if calls:
+        shifted = []
+        for dst, ids, vals, tile in calls:
+            v = torch.empty(vals.numel() + 1, dtype=vals.dtype,
+                            device=s.dev)[1:]
+            v.copy_(vals)
+            shifted.append((dst, ids, v, tile))
+
+        def run(arglists):
+            for args in arglists:
+                gt.scatter_tiles(*args)
+
+        bound = sum(s.bound_ms("scatter_tiles", a, a[0])[0] for a in calls)
+        t = {"vector": [], "scalar": []}
+        for mode in ("scalar", "vector", "vector", "scalar"):
+            lists = calls if mode == "vector" else shifted
+            t[mode].append(s.time_cuda(lambda: run(lists), trials=TRIALS))
+        vec_ms, sc_ms = float(np.mean(t["vector"])), float(np.mean(t["scalar"]))
+
+        def device_ms(arglists, kernel):
+            """Device ms of one pass (the per-launch means of each call,
+            summed) and the launches the profiler recorded per call."""
+            got = [profiled_device_ms(torch, lambda a=a: gt.scatter_tiles(*a),
+                                      kernel) for a in arglists]
+            ms = None if any(m is None for m, _ in got) \
+                else sum(m for m, _ in got)
+            return ms, [n for _, n in got]
+
+        dev_ms, rec = device_ms(calls, "scatter_tiles_vec_kernel")
+        dev_sc, rec_sc = device_ms(shifted, "scatter_tiles_kernel")
+        queued = queued_device_ms(torch, lambda: run(calls))
+
+        def share(ms):
+            return "not measured" if ms is None else f"{100 * bound / ms:.1f}%"
+
+        print(f"K6 on fem-bsr-rerun [{s.name}, {s.card}]: vector branch "
+              f"{vec_ms:.4f} ms by CUDA events ({t['vector']}), "
+              f"{fmt_ms(dev_ms)} ms device time by torch.profiler "
+              f"(launches recorded per call, of 10: {rec}), "
+              f"{fmt_ms(queued)} ms queued behind a sleep; bound "
+              f"{bound:.4f} ms: {share(vec_ms)} of it by events, "
+              f"{share(dev_ms)} by the profiler's device time, "
+              f"{share(queued)} queued; scalar branch on the same values "
+              f"{sc_ms:.4f} ms by events ({t['scalar']}), {fmt_ms(dev_sc)} "
+              f"ms device time (recorded {rec_sc})", flush=True)
+
+    calls = [a for p, a in s.calls["gather_tiles8"] if p == "spgemm"]
+    if calls:
+        src, ids = calls[0]
+        ev_ms = s.time_cuda(lambda: gt.gather_tiles8(src, ids), trials=TRIALS)
+        dev_ms, rec = profiled_device_ms(
+            torch, lambda: gt.gather_tiles8(src, ids), "gather_tiles8_kernel")
+        queued = queued_device_ms(torch, lambda: gt.gather_tiles8(src, ids))
+        bound = s.bound_ms("gather_tiles8", (src, ids),
+                           gt.gather_tiles8_plain(src, ids))[0]
+        print(f"K12 on spgemm [{s.name}, {s.card}]: {ev_ms:.4f} ms by CUDA "
+              f"events, {fmt_ms(dev_ms)} ms device time by torch.profiler "
+              f"(launches recorded, of 10: {rec}), {fmt_ms(queued)} ms "
+              f"queued behind a sleep; bound {bound:.4f} ms", flush=True)
+
+
+def host_us(torch, fn, reps: int = LAUNCH_REPS) -> float:
+    """Host µs per call of ``fn`` over ``reps`` back-to-back calls, the
+    host clock around them and a closing ``torch.cuda.synchronize()``
+    (after one untimed call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def launch_cost_phase(s: Smoke) -> None:
+    """Where the host's time per launch goes: each step of the ctypes
+    launch path alone, the whole wrappers, and the PyTorch calls that
+    compute the same functions, at 1 tile and at the main path's own
+    calls (when the paths have run).  Each step is timed over LAUNCH_REPS
+    back-to-back calls, in LAUNCH_ROUNDS rounds that take every step in
+    turn; the median round is printed, with the fastest and slowest."""
+    torch, cl = s.torch, s.cuda_lib
+    from nsparse_tpu_torch.buildlib import BUILD_DIR
+    from nsparse_tpu_torch.ops.kernels import gather_tiles, shuffle
+
+    src = torch.randn(2 * 1024, device=s.dev)
+    ids = torch.ones(1, dtype=torch.int32, device=s.dev)
+    out = torch.empty(1024, device=s.dev)
+    idx = torch.arange(1024, dtype=torch.int32, device=s.dev)
+    fn = cl.entry("nsp_gather_tiles8", torch.float32)
+    c_args = (cl.ptr(src), 2, cl.ptr(ids), 1, cl.ptr(out), cl.stream(src))
+    int_args = (src.data_ptr(), 2, ids.data_ptr(), 1, out.data_ptr(),
+                torch.cuda.current_stream(s.dev).cuda_stream)
+    # the same entry point loaded through ctypes.PyDLL, which keeps the
+    # interpreter lock during the call
+    held = getattr(ctypes.PyDLL(glob.glob(os.path.join(
+        BUILD_DIR, "libnsparse_gather_tiles8-*.so"))[0]),
+        "nsp_gather_tiles8_f32")
+    held.argtypes, held.restype = fn.argtypes, fn.restype
+
+    def device_context():
+        with torch.cuda.device(src.device):
+            pass
+
+    tiles, il, idx_l = src.view(-1, 1024), ids.long(), idx.long()
+    steps = {
+        "old path: cuda_lib.entry": lambda: cl.entry("nsp_gather_tiles8",
+                                                     torch.float32),
+        "old path: with torch.cuda.device(dev): pass": device_context,
+        "old path: cuda_lib.stream(t)": lambda: cl.stream(src),
+        "old path: cuda_lib.require_cuda, 3 tensors":
+            lambda: cl.require_cuda("gather_tiles8", src, ids, out),
+        "old path: ctypes.c_void_p(t.data_ptr())":
+            lambda: ctypes.c_void_p(src.data_ptr()),
+        "bare ctypes call of K12's entry, 1 tile, c_void_p arguments":
+            lambda: fn(*c_args),
+        "bare ctypes call of K12's entry, 1 tile, int arguments":
+            lambda: fn(*int_args),
+        "bare ctypes call of K12's entry, 1 tile, int arguments, "
+        "interpreter lock held (PyDLL)": lambda: held(*int_args),
+        "bare ctypes call that launches nothing (nsp_error_string)":
+            lambda: cl.KERNELS.get().nsp_error_string(0),
+        "new path: cuda_lib.validate, 3 tensors":
+            lambda: cl.validate("gather_tiles8", src, 2, ids, 1, out),
+        "new path: cuda_lib.resolve":
+            lambda: cl.resolve("nsp_gather_tiles8", torch.float32),
+        "new path: current device": cl._current_device,
+        "new path: raw current stream": lambda: cl._raw_stream(0),
+        "new path: cuda_lib.launch of K12, 1 tile": lambda: cl.launch(
+            "gather_tiles8", "nsp_gather_tiles8", src, 2, ids, 1, out),
+        "torch.empty, 1 tile": lambda: torch.empty(1024, device=s.dev),
+        "t.new_empty, 1 tile": lambda: src.new_empty(1024),
+        "K12 gather_tiles8 (new path), 1 tile":
+            lambda: gather_tiles.gather_tiles8(src, ids),
+        "K6 scatter_tiles (new path), 1 tile":
+            lambda: gather_tiles.scatter_tiles(src, ids, out, 1024),
+        "K1 gather (old path, the control), 1 tile":
+            lambda: shuffle.gather(src, idx),
+        "index_select, 1 tile": lambda: tiles.index_select(0, il),
+        "index_copy_, 1 tile":
+            lambda: tiles.index_copy_(0, il, out.view(1, 1024)),
+        "x[idx], 1 tile": lambda: src[idx_l],
+    }
+    # the main path's own calls: K12 on R-MAT-14's fallback pool, K6 and
+    # K1 on the stencil ELL, each beside its library call
+    for k, path, lib in (("gather_tiles8", "spgemm", "index_select"),
+                         ("scatter_tiles", "stencil-ell-sigma0",
+                          "index_copy_"),
+                         ("gather", "stencil-ell-sigma0", "x[idx]")):
+        calls = [a for p, a in s.calls[k] if p == path]
+        if calls:
+            args = s.fresh(k, calls[0])
+            steps[f"{k} on {path}"] = \
+                lambda w=s.wrappers[k], a=args: w(*a)
+            steps[f"{lib} on {path}"] = s.library_call(k, args)
+
+    us = {what: [] for what in steps}
+    for _ in range(LAUNCH_ROUNDS):
+        for what, step in steps.items():
+            us[what].append(host_us(torch, step))
+    for what, t in us.items():
+        print(f"launch cost [{s.name}, {s.card}]: {what}: "
+              f"{float(np.median(t)):.3f} us per call (median of "
+              f"{LAUNCH_ROUNDS} rounds of {LAUNCH_REPS} calls; "
+              f"{min(t):.3f} to {max(t):.3f})", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1175,7 +1472,7 @@ def main() -> None:
           f"(nvcc {' '.join(s.cuda_lib.NVCC_FLAGS)})", flush=True)
 
     for phase in (spgemm_phase, spmv_phases, bsr_spgemm_phases,
-                  windowed_gather_phase):
+                  windowed_gather_phase, tile_copy_phase, launch_cost_phase):
         t0 = time.perf_counter()
         phase(s)
         print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "

@@ -112,14 +112,15 @@ class _KernelLib:
 KERNELS = _KernelLib()
 
 
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+
+
 def entry(name: str, dtype: torch.dtype):
     """The C entry point ``name`` for values of ``dtype``."""
-    if dtype == torch.float32:
-        suffix = "_f32"
-    elif dtype == torch.float64:
-        suffix = "_f64"
-    else:
-        raise TypeError(f"{name}: values must be float32 or float64, got {dtype}")
+    suffix = _SUFFIX.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: values must be float32 or float64, got "
+                        f"{dtype}")
     return getattr(KERNELS.get(), name + suffix)
 
 
@@ -159,3 +160,91 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: tensors must be contiguous")
         if not t.is_floating_point() and t.dtype != torch.int32:
             raise ValueError(f"{what}: index arrays must be int32")
+
+
+# -- the lean launch path ----------------------------------------------------
+#
+# What a launch costs the host beyond the C call itself (chip_smoke.py's
+# launch-cost phase times each step): ``entry`` takes a lock and a getattr,
+# ``torch.cuda.device`` a device switch in and out, ``stream`` builds a
+# ``torch.cuda.Stream`` (which switches the device again), ``ptr`` a
+# ``c_void_p`` per pointer.  ``launch`` does none of these.
+
+_RESOLVED = {}  # (name, dtype): the C entry point
+
+
+def resolve(name: str, dtype: torch.dtype):
+    """The C entry point ``name`` for values of ``dtype``, looked up in
+    the kernel library once per (name, dtype)."""
+    fn = _RESOLVED.get((name, dtype))
+    if fn is None:
+        fn = _RESOLVED[name, dtype] = entry(name, dtype)
+    return fn
+
+
+def validate(what: str, *args) -> tuple[int, torch.dtype | None, list]:
+    """(device index, value dtype, ``args`` with each tensor replaced by
+    its data pointer) for C arguments ``args``; the tensors among them
+    must be contiguous on one CUDA device, indices int32 and values of
+    one float dtype, or this raises."""
+    device, dtype, one_device, c_args = None, None, True, []
+    for t in args:
+        if not isinstance(t, torch.Tensor):
+            c_args.append(t)
+            continue
+        c_args.append(t.data_ptr())
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+        dt = t.dtype  # dtypes are singletons: compared by identity
+        if dt is not torch.int32 and dt is not dtype:
+            if not dt.is_floating_point:
+                raise ValueError(f"{what}: index arrays must be int32")
+            if dtype is not None:
+                raise TypeError(f"{what}: values must share one dtype, got "
+                                f"{dtype} and {dt}")
+            dtype = dt
+        index = t.get_device() if t.is_cuda else -1
+        if device is None:
+            device = index
+        one_device = one_device and index == device
+    if device is None:
+        raise ValueError(f"{what}: no tensor to launch on")
+    if device < 0 or not one_device:
+        devices = sorted({str(a.device) for a in args
+                          if isinstance(a, torch.Tensor)})
+        raise ValueError(f"{what}: all tensors must be on one CUDA device, "
+                         f"got {devices}")
+    return device, dtype, c_args
+
+
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
+
+
+def _set_device(index: int) -> None:
+    torch._C._cuda_setDevice(index)
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on device ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(what: str, name: str, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and PyTorch's current
+    stream, on the device of the tensors in ``args``; each tensor is
+    passed as its data pointer.  The tensors are checked (``validate``)
+    before the kernel library is touched; a CUDA error raises."""
+    device, dtype, c_args = validate(what, *args)
+    fn = _RESOLVED.get((name, dtype)) or resolve(name, dtype)
+    current = _current_device()
+    if current == device:
+        rc = fn(*c_args, _raw_stream(device))
+    else:
+        _set_device(device)
+        try:
+            rc = fn(*c_args, _raw_stream(device))
+        finally:
+            _set_device(current)
+    if rc:
+        check(rc, what)

@@ -97,20 +97,19 @@ def scatter_tiles(dst: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
     CPU tensors take :func:`scatter_tiles_plain`; CUDA tensors launch the
     kernel (``csrc/scatter_tiles.cu``) or raise.
     """
-    if vals.numel() != ids.numel() * tile or vals.dtype != dst.dtype \
+    n = ids.numel()
+    if vals.numel() != n * tile or vals.dtype != dst.dtype \
             or dst.numel() % tile:
         raise ValueError("scatter_tiles: dst must be whole tiles and vals "
                          "len(ids) tiles of dst's dtype")
-    if dst.device.type == "cpu":
+    if dst.is_cpu:
         return scatter_tiles_plain(dst, ids, vals, tile)
-    cuda_lib.require_cuda("scatter_tiles", dst, ids, vals)
-    if ids.numel():
-        fn = cuda_lib.entry("nsp_scatter_tiles", dst.dtype)
-        with torch.cuda.device(dst.device):
-            rc = fn(cuda_lib.ptr(dst), cuda_lib.ptr(ids), ids.numel(),
-                    cuda_lib.ptr(vals), tile, cuda_lib.stream(dst))
-        cuda_lib.check(rc, "scatter_tiles")
+    if n:
+        cuda_lib.launch("scatter_tiles", "nsp_scatter_tiles", dst, ids, n,
+                        vals, tile)
         scatter_tiles.launches += 1
+    else:
+        cuda_lib.validate("scatter_tiles", dst, ids, vals)
     return dst
 
 
@@ -143,19 +142,18 @@ def gather_tiles8(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """
     if src.numel() % TILE8:
         raise ValueError("gather_tiles8: src must be whole 1024-slot tiles")
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return gather_tiles8_plain(src, ids)
-    cuda_lib.require_cuda("gather_tiles8", src, ids)
+    n = ids.numel()
+    out = src.new_empty(n * TILE8)
+    if not n:
+        cuda_lib.validate("gather_tiles8", src, ids)
+        return out
     if src.data_ptr() % 16:
         raise ValueError("gather_tiles8: src must be 16-byte aligned")
-    out = torch.empty(ids.numel() * TILE8, dtype=src.dtype, device=src.device)
-    if ids.numel():
-        fn = cuda_lib.entry("nsp_gather_tiles8", src.dtype)
-        with torch.cuda.device(src.device):
-            rc = fn(cuda_lib.ptr(src), src.numel() // TILE8, cuda_lib.ptr(ids),
-                    ids.numel(), cuda_lib.ptr(out), cuda_lib.stream(src))
-        cuda_lib.check(rc, "gather_tiles8")
-        gather_tiles8.launches += 1
+    cuda_lib.launch("gather_tiles8", "nsp_gather_tiles8", src,
+                    src.numel() // TILE8, ids, n, out)
+    gather_tiles8.launches += 1
     return out
 
 

@@ -1,0 +1,223 @@
+"""The lean launch path (``cuda_lib.launch``) of K6 scatter_tiles and K12
+gather_tiles8, without a card and without building the kernel library.
+
+The library is never built or loaded here: every test that could reach it
+stubs ``cuda_lib.KERNELS`` (and clears the resolved-entry cache), so a
+check that runs too late fails the test instead of starting ``nvcc``.  K6
+is also held against the JAX ``scatter_tiles`` in interpret mode at more
+shapes than ``tests/test_torch_gather.py`` covers.
+"""
+
+import types
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from nsparse_tpu.ops.kernels.gather_pallas import scatter_tiles as j_scatter
+
+from nsparse_tpu_torch.ops.kernels import cuda_lib, gather_tiles
+
+
+class _Library:
+    """Stands in for the built library: counts ``get()`` and records the
+    calls of its entry points."""
+
+    def __init__(self, rc=0):
+        self.gets, self.calls = 0, []
+
+        def entry(*args):
+            self.calls.append(args)
+            return rc
+
+        self.ns = types.SimpleNamespace(
+            nsp_scatter_tiles_f32=entry, nsp_scatter_tiles_f64=entry,
+            nsp_error_string=lambda rc: b"stub error")
+
+    def get(self):
+        self.gets += 1
+        return self.ns
+
+
+@pytest.fixture
+def library(monkeypatch):
+    lib = _Library()
+    monkeypatch.setattr(cuda_lib, "KERNELS", lib)
+    monkeypatch.setattr(cuda_lib, "_RESOLVED", {})
+    return lib
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    def refuse():
+        pytest.fail("the kernel library was touched before the checks")
+
+    monkeypatch.setattr(cuda_lib.KERNELS, "get", refuse)
+    monkeypatch.setattr(cuda_lib, "_RESOLVED", {})
+
+
+def _f32(n=1024):
+    return torch.zeros(n, dtype=torch.float32)
+
+
+def _i32(n=1):
+    return torch.zeros(n, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("args, error, match", [
+    ((_f32(), _i32(), _f32()), ValueError, "must be on one CUDA device"),
+    ((torch.zeros(1024, device="meta"), _i32(), _f32()), ValueError,
+     r"must be on one CUDA device, got \['cpu', 'meta'\]"),
+    ((_f32(2048).view(2, 1024).t(), _i32(), _f32()), ValueError,
+     "contiguous"),
+    ((_f32(), torch.zeros(1, dtype=torch.int64), _f32()), ValueError,
+     "int32"),
+    ((_f32(), _i32(), torch.zeros(1024, dtype=torch.float64)), TypeError,
+     "share one dtype"),
+], ids=["cpu", "mixed-devices", "non-contiguous", "int64-indices",
+        "mixed-floats"])
+def test_launch_checks_before_touching_the_library(no_library, args, error,
+                                                   match):
+    a, i, b = args
+    with pytest.raises(error, match=match):
+        cuda_lib.launch("scatter_tiles", "nsp_scatter_tiles", a, i, 1, b,
+                        1024)
+
+
+def test_resolve_looks_up_once_per_name_and_dtype(library):
+    f32 = cuda_lib.resolve("nsp_scatter_tiles", torch.float32)
+    assert cuda_lib.resolve("nsp_scatter_tiles", torch.float32) is f32
+    assert library.gets == 1 and f32 is library.ns.nsp_scatter_tiles_f32
+    cuda_lib.resolve("nsp_scatter_tiles", torch.float64)
+    assert library.gets == 2
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cuda_lib.resolve("nsp_scatter_tiles", torch.float16)
+    assert library.gets == 2
+
+
+def _stub_device(monkeypatch, current, device):
+    """A card-less launch: ``validate`` answers ``device`` (float32), the
+    current device is ``current``; returns the device switches made."""
+    switches = []
+    state = {"current": current}
+
+    def set_device(i):
+        switches.append(i)
+        state["current"] = i
+
+    monkeypatch.setattr(cuda_lib, "validate", lambda what, *args: (
+        device, torch.float32,
+        [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]))
+    monkeypatch.setattr(cuda_lib, "_current_device", lambda: state["current"])
+    monkeypatch.setattr(cuda_lib, "_set_device", set_device)
+    monkeypatch.setattr(cuda_lib, "_raw_stream", lambda i: 7000 + i)
+    return switches
+
+
+@pytest.mark.parametrize("current, device, switches", [
+    (0, 0, []),
+    (0, 1, [1, 0]),
+])
+def test_launch_passes_ints_on_the_tensors_device(library, monkeypatch,
+                                                  current, device, switches):
+    """Pointers, sizes and the stream go to the entry point as plain ints;
+    the device is switched only when it is not the current one, and
+    restored after the call."""
+    got = _stub_device(monkeypatch, current, device)
+    dst, ids, vals = _f32(), _i32(), _f32()
+    cuda_lib.launch("scatter_tiles", "nsp_scatter_tiles", dst, ids, 1, vals,
+                    1024)
+    assert library.calls == [(dst.data_ptr(), ids.data_ptr(), 1,
+                              vals.data_ptr(), 1024, 7000 + device)]
+    assert got == switches
+    assert cuda_lib._current_device() == current
+
+
+def test_launch_raises_on_a_cuda_error_and_restores_the_device(monkeypatch):
+    lib = _Library(rc=716)
+    monkeypatch.setattr(cuda_lib, "KERNELS", lib)
+    monkeypatch.setattr(cuda_lib, "_RESOLVED", {})
+    got = _stub_device(monkeypatch, 0, 1)
+    with pytest.raises(RuntimeError, match="scatter_tiles: CUDA error 716"):
+        cuda_lib.launch("scatter_tiles", "nsp_scatter_tiles", _f32(), _i32(),
+                        1, _f32(), 1024)
+    assert got == [1, 0] and len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("call, c_name", [
+    (lambda d: gather_tiles.scatter_tiles(
+        torch.zeros(4096, device=d), torch.zeros(2, dtype=torch.int32,
+                                                 device=d),
+        torch.zeros(2048, device=d), 1024), "nsp_scatter_tiles"),
+    (lambda d: gather_tiles.gather_tiles8(
+        torch.zeros(4096, device=d), torch.zeros(3, dtype=torch.int32,
+                                                 device=d)),
+     "nsp_gather_tiles8"),
+], ids=["K6", "K12"])
+def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name):
+    """K6's and K12's wrappers hand ``launch`` one argument per C
+    parameter before the stream: a tensor for each pointer, an int for
+    each size."""
+    seen = []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: seen.append((name, args)))
+    call("meta")
+    (name, args), = seen
+    assert name == c_name
+    sig = cuda_lib._SIGNATURES[name][:-1]
+    assert len(args) == len(sig)
+    for a, kind in zip(args, sig):
+        assert isinstance(a, torch.Tensor) == (kind is cuda_lib._P)
+        assert isinstance(a, (torch.Tensor, int))
+
+
+@pytest.mark.parametrize("call", [
+    lambda: gather_tiles.scatter_tiles(
+        torch.zeros(2048, device="meta"),
+        torch.zeros(1, dtype=torch.int32, device="meta"),
+        torch.zeros(1024, device="meta"), 1024),
+    lambda: gather_tiles.scatter_tiles(
+        torch.zeros(2048, device="meta"),
+        torch.zeros(0, dtype=torch.int32, device="meta"),
+        torch.zeros(0, device="meta"), 1024),
+    lambda: gather_tiles.gather_tiles8(
+        torch.zeros(2048, device="meta"),
+        torch.zeros(0, dtype=torch.int32, device="meta")),
+], ids=["K6", "K6-empty", "K12-empty"])
+def test_wrappers_refuse_a_non_cuda_device(no_library, call):
+    """Off the CPU, K6 and K12 launch on a card or raise, also when there
+    is nothing to move; no launch is counted."""
+    before = (gather_tiles.scatter_tiles.launches,
+              gather_tiles.gather_tiles8.launches)
+    with pytest.raises(ValueError, match="must be on one CUDA device"):
+        call()
+    assert (gather_tiles.scatter_tiles.launches,
+            gather_tiles.gather_tiles8.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n_dst, ids, tile_rows", [
+    (16, [15, 0, 9, 3, 12, 1, 6], 8),
+    (6, [5, 2], 16),
+], ids=["7-tiles", "2048-value-tiles"])
+def test_scatter_tiles_more_shapes_match_jax(dtype, n_dst, ids, tile_rows):
+    """K6's plain version against the JAX scatter_tiles in interpret mode
+    (f64 through its two uint32 planes) at a second tile count and a
+    second tile size, bit for bit; tiles not listed keep their values."""
+    rng = np.random.default_rng(len(ids))
+    dst = rng.standard_normal((n_dst * tile_rows, 128)).astype(dtype)
+    vals = rng.standard_normal((len(ids), tile_rows, 128)).astype(dtype)
+    ids = np.array(ids, np.int32)
+    want = np.asarray(j_scatter(jnp.asarray(dst.copy()), jnp.asarray(ids),
+                                jnp.asarray(vals), tile_rows=tile_rows))
+    got = torch.from_numpy(dst.copy()).reshape(-1)
+    out = gather_tiles.scatter_tiles(got, torch.from_numpy(ids),
+                                     torch.from_numpy(vals),
+                                     tile_rows * 128)
+    assert out is got
+    np.testing.assert_array_equal(got.reshape(dst.shape).numpy(), want)
+    kept = np.setdiff1d(np.arange(n_dst), ids)
+    np.testing.assert_array_equal(
+        want.reshape(n_dst, -1)[kept], dst.reshape(n_dst, -1)[kept])
