@@ -6,8 +6,9 @@ CUDA card.
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi) and the toolchain;
-  2. build the fourteen Hopper kernels from the twelve sources of
-     ``nsparse_tpu_torch/csrc``;
+  2. build the sixteen Hopper kernels (K1-K12, K2 in its run, piece and
+     flat modes, K3 v1 and v2, K4 fixed and K-fold) from the twelve
+     sources of ``nsparse_tpu_torch/csrc``;
   3. SpGEMM: C = A @ A on R-MAT-14 (edge factor 8, seed 1, float32) —
      ``choose_spgemm_path`` must answer esc; ``spgemm_plan`` on the host
      must build the v2 form (the 1,344-row bank fits the budget), then
@@ -21,6 +22,23 @@ Phases (any failure exits non-zero before the final line):
      kernels, with the plain versions and as one cuSPARSE CSR SpGEMM, the
      v2 phase split into its four stages (delivery, classes, fallback,
      merge), and both under torch.profiler;
+  3b. the other ESC layouts, each C checked against scipy and re-run with
+     new values in float32 and float64 on its plan, launch counts exact:
+       spgemm-global            R-MAT-14, ``layout="global"``: K11 bank,
+                                K1 x3, K2 piece mode per class, K12; C
+                                equal in structure to the window C;
+       spgemm-global-unaligned  R-MAT-16 (edge factor 4, seed 1), whose
+                                3,136-row bank exceeds BANK_ROWS_MAX: K11
+                                flat table, K1 x3, K2 flat mode per class,
+                                K12;
+       spgemm-sort              R-MAT-14, ``shuffle=False``: the K5/K1/K6
+                                launches of its two gather plans, two runs
+                                equal;
+       spgemm-oneshot           ``nt.spgemm(a, a)``, the device planner:
+                                no kernel launched; plan and numeric phase
+                                timed whole beside cuSPARSE;
+  3c. K4's K-fold mode alone on 2^24 output values, equal to its plain
+     version bit for bit;
   4. SpMV, float32 unless marked, each path checked against scipy (rtol
      1e-5, or 1e-8 in float64, scaled by |A||x|):
        irregular  R-MAT-20 (edge factor 16, seed 2), ELL (min_width 2,
@@ -83,6 +101,14 @@ SCALE, EDGE_FACTOR, SEED = 14, 8, 1
 # nnz(C), the v2 bank's rows and the fallback pool's products
 N_PRODUCTS, NNZ_C = 17_075_504, 8_935_048
 BANK_ROWS, FB_PRODUCTS = 1344, 1_029_640
+# the global slab layout's unaligned (flat) piece mode: R-MAT-16, edge
+# factor 4, seed 1, whose 8-aligned B table needs more bank rows than
+# BANK_ROWS_MAX (structural counts: nnz(A), P, 8-aligned slots, bank rows)
+UNALIGNED = dict(scale=16, edge_factor=4, seed=1)
+UNALIGNED_COUNTS = (253_066, 35_482_345, 394_296, 3136)
+# K4's K-fold phase: at least 2^24 output values in runs of 1-4,096
+# values, a quarter of them at each fold factor K in (1, 2, 4, 8)
+KFOLD_OUT, KFOLD_RUN_MAX = 1 << 24, 4096
 TRIALS = 20
 RMAT_SCALE, RMAT_EF, RMAT_SEED = 20, 16, 2
 STENCIL = 2048
@@ -135,6 +161,10 @@ KERNELS = {
                       "nsparse_tpu/ops/kernels/piecewise.py:492"),
     "fused_class_v2": ("cuda", "nsparse_tpu_torch/csrc/fused_class.cu",
                        "nsparse_tpu/ops/kernels/window_fused.py:463"),
+    "expand_pieces_flat": ("cuda", "nsparse_tpu_torch/csrc/expand.cu",
+                           "nsparse_tpu/ops/kernels/piecewise.py:492"),
+    "runcopy_kfold": ("cuda", "nsparse_tpu_torch/csrc/runcopy.cu",
+                      "nsparse_tpu/ops/kernels/runcopy.py:1035"),
 }
 # how each kernel is held against its plain version
 TOLERANCE = {
@@ -145,7 +175,9 @@ TOLERANCE = {
 SPGEMM_FIELDS = {"gather": "gather", "expand": "expand",
                  "fused": "fused_class", "runcopy": "runcopy",
                  "bank": "build_bank", "fused_v2": "fused_class_v2",
-                 "pieces": "expand_pieces", "tiles8": "gather_tiles8"}
+                 "pieces": "expand_pieces", "tiles8": "gather_tiles8",
+                 "pieces_flat": "expand_pieces_flat",
+                 "scatter": "scatter_tiles"}
 # the kernels each form of the window numeric phase must launch on
 # R-MAT-14 (its fallback pool is not empty); spgemm_phase checks their
 # exact counts against the plan
@@ -262,6 +294,8 @@ class Smoke:
             "gather_tiles8": gather_tiles.gather_tiles8,
             "expand_pieces": piecewise.expand_pieces,
             "fused_class_v2": window_fused.fused_class_expand,
+            "expand_pieces_flat": piecewise.expand_pieces_flat,
+            "runcopy_kfold": runcopy.runcopy_kfold,
         }
         self.plain = {
             "gather": shuffle.gather_plain,
@@ -279,6 +313,8 @@ class Smoke:
             "gather_tiles8": gather_tiles.gather_tiles8_plain,
             "expand_pieces": piecewise.expand_pieces_plain,
             "fused_class_v2": window_fused.fused_class_expand_plain,
+            "expand_pieces_flat": piecewise.expand_pieces_flat_plain,
+            "runcopy_kfold": runcopy.runcopy_kfold_plain,
         }
         self.piecewise, self.window_fused = piecewise, window_fused
         # where the SpMV and block SpGEMM paths look each wrapper up
@@ -418,7 +454,7 @@ class Smoke:
             args[4] = args[4].clone()
         elif k == "scatter_tiles":
             args[0] = args[0].clone()
-        elif k == "expand_pieces":
+        elif k in ("expand_pieces", "expand_pieces_flat"):
             args[5] = args[5].clone()
         return args
 
@@ -493,11 +529,12 @@ class Smoke:
             reads = int(torch.unique(ids[valid]).numel())
             nbytes = ids.numel() * 4 + (reads * 1024 + out.numel()) \
                 * src.element_size()
-        elif k == "expand_pieces":
-            # the piece tables, each distinct bank value a slot reads, the
-            # subtiles written
+        elif k in ("expand_pieces", "expand_pieces_flat"):
+            # the piece tables, each distinct bank (or flat table) value a
+            # slot reads, the subtiles written
             j, cuts, boffs, apv, bank, _ = args
-            sel, bidx = self.piecewise.piece_sources(j, cuts, boffs)
+            sel, bidx = self.piecewise.piece_sources(
+                j, cuts, boffs, 128 if k == "expand_pieces" else 1)
             reads = int(torch.unique(bidx[sel >= 0]).numel())
             vb = bank.element_size()
             nbytes = cuts.numel() * (8 + vb) + (reads + out.numel()) * vb
@@ -514,6 +551,13 @@ class Smoke:
             vb = bank.element_size()
             nbytes = sum(x.numel() * 4 for x in tabs) \
                 + (apv.numel() + reads + out.numel()) * vb
+        elif k == "runcopy_kfold":
+            # the run descriptors, the K sub-runs of every run (strides of
+            # at least the run's length: no value read twice), the output
+            plan, src = args
+            vb = src.element_size()
+            reads = int((plan.kfac.long() * plan.len.long()).sum())
+            nbytes = 5 * plan.n_runs * 4 + (reads + out.numel()) * vb
         elif k == "windowed_gather":
             # the indices, the outputs and each window value they name
             win, idx, window = args
@@ -598,14 +642,15 @@ class Smoke:
             return lambda: src[il]
         if k == "build_bank":
             # the bank's rolled source index, clamped into b_val
-            b8_idx, rows, b_val = args
+            b8_idx, rows, b_val, *rest = args
+            copies = rest[0] if rest else self.piecewise.BANK_K
             n = rows * 128
             j = torch.zeros(n, dtype=torch.long, device=b_val.device)
             bias = self.piecewise.BIAS
             j[bias: bias + b8_idx.numel()] = b8_idx.long().clamp(
                 0, max(b_val.numel() - 1, 0))
             roll = (torch.arange(n, device=b_val.device)[None, :]
-                    + 8 * torch.arange(self.piecewise.BANK_K,
+                    + 8 * torch.arange(copies,
                                        device=b_val.device)[:, None]) % n
             il = j[roll].reshape(-1)
             return lambda: b_val[il]
@@ -795,6 +840,7 @@ def spgemm_phase(s: Smoke) -> None:
     if s.path_launches["spgemm"] != want:
         fail(f"v2 launches {s.path_launches['spgemm']}, expected {want}")
     check_c(s, c, a, "C (v2)")
+    s.rmat14 = (a, a_d, c)  # the other R-MAT-14 layouts reuse the matrix
 
     v2 = np.random.default_rng(SEED + 1).standard_normal(a.nnz)
     a2 = a.with_values(torch.from_numpy(v2.astype(np.float32)))
@@ -881,6 +927,233 @@ def spgemm_phase(s: Smoke) -> None:
           + f"  (sum {sum(stage_ms.values()):.4f} ms)", flush=True)
     profile_calls(torch, v2_run, "v2 numeric")
     profile_calls(torch, v1_run, "v1 numeric")
+
+
+def layout_path(s: Smoke, path: str, a, plan, run, ops_run, want) -> None:
+    """One R-MAT C = A @ A path in a host-plan layout: the counted run of
+    ``run()`` with its launches held to ``want`` exactly, the scipy check,
+    new values on the same plan in float32 and float64, the kernel calls
+    recorded through ``ops_run(ops)``, and the numeric phase timed with
+    the kernels, with their plain versions and as one cuSPARSE CSR
+    SpGEMM.  ``ops_run`` None: the path's kernels sit behind
+    ``flat_gather``, recorded and swapped there.  Returns C."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops import spgemm_window as sw
+
+    c = s.counted(run, list(want), path)
+    if s.path_launches[path] != want:
+        fail(f"{path}: launches {s.path_launches[path]}, expected {want}")
+    check_c(s, c, a, f"{path}: C")
+    v2 = np.random.default_rng(SEED + 2).standard_normal(a.nnz)
+    for dt in (np.float32, np.float64):
+        a2 = a.with_values(torch.from_numpy(v2.astype(dt)))
+        a2_d = a2.to(s.dev)
+        check_c(s, nt.spgemm_numeric(plan, a2_d, a2_d), a2,
+                f"{path}: new {np.dtype(dt).name} values on the same plan")
+    if ops_run is None:
+        s.record(run, path)
+        t = s.turns(run)
+    else:
+        ops_type = type(sw.KERNEL_OPS)
+
+        def recorder(field):
+            def call(*args):
+                s.calls[SPGEMM_FIELDS[field]].append((path, args))
+                return getattr(sw.KERNEL_OPS, field)(*args)
+            return call
+
+        ops_run(ops_type(*(recorder(f) for f in ops_type._fields)))
+        t = {"plain": [], "kernels": []}
+        for mode in ("plain", "kernels", "kernels", "plain"):
+            ops = sw.PLAIN_OPS if mode == "plain" else sw.KERNEL_OPS
+            t[mode].append(s.time_cuda(lambda: ops_run(ops), trials=TRIALS))
+    lib_ms = cusparse_spgemm_ms(s, a, path)
+    ms = float(np.mean(t["kernels"]))
+    print(f"{path} numeric phase [{s.name}, {s.card}]: kernels {ms:.4f} ms "
+          f"({t['kernels']})  plain {np.mean(t['plain']):.4f} ms "
+          f"({t['plain']})  cuSPARSE CSR A @ A {fmt_ms(lib_ms)} ms  "
+          f"{2 * plan.n_products / (ms * 1e-3) / 1e9:.2f} GFLOPS", flush=True)
+    return c
+
+
+def global_launches(pw) -> dict:
+    """The launches of the global slab layout's numeric phase: K11 (the
+    bank, or the flat table), K1 three times (the pieces' A values, the
+    slab shuffle, the assembly), K2 once per non-empty piece class in the
+    plan's mode, K12."""
+    mode = "expand_pieces" if pw.aligned else "expand_pieces_flat"
+    return {"build_bank": 1, "gather": 3,
+            mode: sum(1 for i in pw.ids if i.numel()), "gather_tiles8": 1}
+
+
+def global_phase(s: Smoke, path: str, a, plan) -> object:
+    from nsparse_tpu_torch.ops.spgemm import spgemm_numeric_slab
+
+    pw = plan.glob.pw
+    print(f"{path}: {'aligned' if pw.aligned else 'unaligned'} pieces, "
+          f"8-aligned B table {pw.nnz_b} slots, table {pw.table_rows} rows, "
+          f"arena {pw.n_pad} slots in {[int(i.numel()) for i in pw.ids]} "
+          f"piece subtiles, slab levels "
+          f"{[len(lv) for lv in plan.glob.slab_levels]}", flush=True)
+    plan_d, a_d = plan.to(s.dev), a.to(s.dev)
+    return layout_path(
+        s, path, a, plan_d, lambda: s.nt.spgemm_numeric(plan_d, a_d, a_d),
+        lambda ops: spgemm_numeric_slab(plan_d, a_d, a_d, ops),
+        global_launches(pw))
+
+
+def esc_layout_phases(s: Smoke) -> None:
+    """The host plan's other layouts and the one-shot device planner.
+    spgemm-global: R-MAT-14 in the global slab layout (aligned pieces),
+    C equal in structure to the window C and its values within 1e-5 of
+    |A||B| of it; spgemm-global-unaligned: R-MAT-16 (edge factor 4), whose
+    B table exceeds the bank, in the flat piece mode; spgemm-sort:
+    R-MAT-14 below the routed layouts (``shuffle=False``), two runs equal;
+    spgemm-oneshot: ``nt.spgemm`` with its default planner, plan and
+    numeric phase timed whole, no kernel launched (as in the JAX
+    package), and again on new values in float32 and float64."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops.kernels.piecewise import (
+        BANK_ROWS_MAX,
+        bank_rows_for,
+    )
+    from nsparse_tpu_torch.utils.checking import spgemm_abs_oracle
+
+    a, a_d, c_win = s.rmat14
+    plan = host_timed("global plan R-MAT-14", lambda: nt.spgemm_plan(
+        a, a, layout="global"))
+    if plan.layout != "global" or not plan.glob.pw.aligned \
+            or plan.glob.pw.table_rows != BANK_ROWS:
+        fail(f"R-MAT-14 global: layout {plan.layout}, expected aligned "
+             f"pieces on a {BANK_ROWS}-row bank")
+    c = global_phase(s, "spgemm-global", a, plan)
+    scale = torch.from_numpy(spgemm_abs_oracle(a, a).data).to(s.dev)
+    diff = (c.val[: c.nnz].double() - c_win.val[: c.nnz].double()).abs()
+    same = torch.equal(c.rpt, c_win.rpt) and torch.equal(c.col, c_win.col)
+    rel = float((diff / scale).max())
+    print(f"spgemm-global: C structure equal to the window C (torch.equal): "
+          f"{same}; max |C_global - C_window| / (|A||B|) {rel:.3g} "
+          f"(within 1e-5: {rel <= 1e-5})", flush=True)
+    if not same or rel > 1e-5:
+        fail("the global and window layouts give different C")
+    del plan, c
+
+    a16 = host_timed("generate R-MAT-16 (edge factor 4)", lambda: nt.rmat_csr(
+        UNALIGNED["scale"], UNALIGNED["edge_factor"], dtype=np.float32,
+        seed=UNALIGNED["seed"]))
+    plan = host_timed("global plan R-MAT-16", lambda: nt.spgemm_plan(
+        a16, a16, layout="global"))
+    pw = plan.glob.pw
+    got = (a16.nnz, plan.n_products, pw.nnz_b, bank_rows_for(pw.nnz_b))
+    print(f"R-MAT-16: nnz(A), P, 8-aligned slots, bank rows {got} (bank "
+          f"limit {BANK_ROWS_MAX} rows); nnz(C) {plan.c_nnz}", flush=True)
+    if got != UNALIGNED_COUNTS or pw.aligned or plan.layout != "global":
+        fail(f"R-MAT-16: counts {got}, expected {UNALIGNED_COUNTS} and the "
+             "unaligned mode")
+    global_phase(s, "spgemm-global-unaligned", a16, plan)
+    del plan, a16
+
+    plan = host_timed("sort plan R-MAT-14", lambda: nt.spgemm_plan(
+        a, a, shuffle=False))
+    if plan.layout != "sort":
+        fail(f"R-MAT-14 shuffle=False: layout {plan.layout}, not sort")
+    srt = plan.srt
+    want = {}
+    for gp, with_other in ((srt.bv_gp, False), (srt.av_gp, True)):
+        n5 = sum(1 for i in gp.ids if i.numel())
+        fb = int(bool(gp.fb_ids.numel()))
+        for k, n in (("gather_subset", n5), ("gather", (1 + with_other) * fb),
+                     ("scatter_tiles", fb)):
+            if n:
+                want[k] = want.get(k, 0) + n
+    if set(want) != gather_kernels([srt.av_gp, srt.bv_gp]):
+        fail(f"sort plan launches {want} disagree with gather_kernels")
+    print(f"spgemm-sort: gather plans av {srt.av_gp.class_fracs}, bv "
+          f"{srt.bv_gp.class_fracs}", flush=True)
+    plan_d = plan.to(s.dev)
+
+    def sort_run():
+        return nt.spgemm_numeric(plan_d, a_d, a_d)
+
+    c = layout_path(s, "spgemm-sort", a, plan_d, sort_run, None, want)
+    again = sort_run()
+    print(f"spgemm-sort: two runs equal (torch.equal): "
+          f"{torch.equal(c.val, again.val)}", flush=True)
+    if not torch.equal(c.val, again.val):
+        fail("the sort layout's numeric phase is not deterministic")
+    profile_calls(torch, sort_run, "sort-layout numeric", calls=3)
+    del plan, plan_d, c, again
+
+    def oneshot():
+        return nt.spgemm(a_d, a_d)
+
+    c = s.counted(oneshot, [], "spgemm-oneshot")
+    if s.path_launches["spgemm-oneshot"]:
+        fail("the one-shot device-planned product launched port kernels")
+    check_c(s, c, a, "spgemm-oneshot: C")
+    v2 = np.random.default_rng(SEED + 2).standard_normal(a.nnz)
+    for dt in (np.float32, np.float64):
+        a2 = a.with_values(torch.from_numpy(v2.astype(dt)))
+        a2_d = a2.to(s.dev)
+        check_c(s, nt.spgemm(a2_d, a2_d), a2,
+                f"spgemm-oneshot: new {np.dtype(dt).name} values")
+    t0 = time.perf_counter()
+    oneshot()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ms = s.time_cuda(oneshot, trials=TRIALS)
+    lib_ms = cusparse_spgemm_ms(s, a, "spgemm-oneshot")
+    print(f"spgemm-oneshot (device plan + numeric) [{s.name}, {s.card}]: "
+          f"{ms:.4f} ms by CUDA events, {wall_ms:.4f} ms host wall of one "
+          f"call; cuSPARSE CSR A @ A (plans in every call too) "
+          f"{fmt_ms(lib_ms)} ms", flush=True)
+    profile_calls(torch, oneshot, "one-shot SpGEMM", calls=3)
+
+
+def kfold_phase(s: Smoke) -> None:
+    """K4's K-fold mode alone (no path of either package calls it): runs
+    of 1-KFOLD_RUN_MAX values, grouped by K = 1, 2, 4, 8, sub-run strides
+    of the run length plus 0-8, at least KFOLD_OUT output values; equal to
+    its plain version bit for bit; float64 values refused."""
+    torch = s.torch
+    from nsparse_tpu_torch.ops.kernels import runcopy
+
+    rng = np.random.default_rng(SEED)
+    src_off, lens, kfac, stride = [], [], [], []
+    cursor = 0
+    for k in (1, 2, 4, 8):
+        out = 0
+        while out < KFOLD_OUT // 4:
+            ln = int(rng.integers(1, KFOLD_RUN_MAX + 1))
+            st = ln + int(rng.integers(0, 9))
+            src_off.append(cursor)
+            lens.append(ln)
+            kfac.append(k)
+            stride.append(st)
+            cursor += st * k + int(rng.integers(0, 33))
+            out += ln
+    plan, _ = host_timed("K-fold plan", lambda: runcopy.build_runcopy_plan(
+        src_off, lens, cursor, kfac=kfac, stride=stride))
+    gen = torch.Generator(device=s.dev).manual_seed(SEED)
+    src = torch.randn(cursor, generator=gen, device=s.dev)
+    plan_d = plan.to(s.dev)
+    print(f"runcopy-kfold: {plan.n_runs} runs, {sum(lens)} values out of "
+          f"{plan.n_out} slots, source {cursor} values", flush=True)
+    out = s.counted(lambda: runcopy.runcopy(plan_d, src), ["runcopy_kfold"],
+                    "runcopy-kfold")
+    if s.path_launches["runcopy-kfold"] != {"runcopy_kfold": 1}:
+        fail(f"runcopy-kfold launches {s.path_launches['runcopy-kfold']}")
+    ok = torch.equal(out, runcopy.runcopy_kfold_plain(plan_d, src))
+    print(f"runcopy-kfold: equal to its plain version (torch.equal): "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("K4's K-fold mode differs from its plain version")
+    try:
+        runcopy.runcopy(plan_d, src.double())
+        fail("K4's K-fold mode took float64 values")
+    except NotImplementedError as e:
+        print(f"runcopy-kfold: float64 refused, as in JAX ({e})", flush=True)
+    s.calls["runcopy_kfold"].append(("runcopy-kfold", (plan_d, src)))
 
 
 def gather_kernels(plans) -> set:
@@ -1471,8 +1744,9 @@ def main() -> None:
     print(f"kernels built: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(s.cuda_lib.NVCC_FLAGS)})", flush=True)
 
-    for phase in (spgemm_phase, spmv_phases, bsr_spgemm_phases,
-                  windowed_gather_phase, tile_copy_phase, launch_cost_phase):
+    for phase in (spgemm_phase, esc_layout_phases, kfold_phase, spmv_phases,
+                  bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,
+                  launch_cost_phase):
         t0 = time.perf_counter()
         phase(s)
         print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "

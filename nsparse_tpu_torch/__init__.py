@@ -1,13 +1,15 @@
 """nsparse_tpu_torch — the PyTorch / CUDA port of nsparse_tpu.
 
 The JAX package ``nsparse_tpu`` is the reference; this package imports
-``torch`` and never ``jax``.  Ported so far: the SpGEMM main path (the
-host symbolic plan, window layout, and the window numeric phase), the
-block-sparse SpGEMM path (``spgemm_bsr``, ``spgemm(..., method="bsr" |
-"auto")``) and the SpMV path (CSR, COO, ELL, DIA and BSR formats, the
-semirings, the ``spmv`` dispatch and its tuner).  Their ten kernels are
-hand-written CUDA for Hopper (``csrc/``) beside their plain PyTorch
-versions.
+``torch`` and never ``jax``.  Ported so far: ESC SpGEMM (the host plan in
+its three layouts: row-localized windows, the global slab and the sort
+layout; the one-shot device planner, the default of ``spgemm``; their
+numeric phases), the block-sparse SpGEMM path (``spgemm_bsr``,
+``spgemm(..., method="bsr" | "auto")``) and the SpMV path (CSR, COO, ELL,
+DIA and BSR formats, the semirings, the ``spmv`` dispatch and its tuner).
+Their kernels are hand-written CUDA for Hopper, twelve sources in
+``csrc/`` (K1-K12, with K2's piece and flat modes and K4's K-fold mode),
+each beside its plain PyTorch version.
 """
 
 from nsparse_tpu_torch.formats.bsr import BSR
@@ -29,6 +31,8 @@ from nsparse_tpu_torch.ops.spgemm import (
     spgemm_numeric,
     spgemm_numeric_segsum,
     spgemm_plan,
+    spgemm_plan_device,
+    spgemm_symbolic_nnz,
 )
 from nsparse_tpu_torch.ops.spgemm_bsr import (
     BsrSpgemmPlan,
@@ -76,6 +80,8 @@ __all__ = [
     "spgemm_numeric_segsum",
     "spgemm_oracle",
     "spgemm_plan",
+    "spgemm_plan_device",
+    "spgemm_symbolic_nnz",
     "spmm",
     "spmv",
     "spmv_abs_oracle",

@@ -1,6 +1,7 @@
 """Command line of the port (counterpart of ``nsparse_tpu/cli.py``).
 
     python -m nsparse_tpu_torch --precision single spmv gen:stencil:2048:2048 --format dia
+    python -m nsparse_tpu_torch --precision single spgemm gen:rmat:14:8
     python -m nsparse_tpu_torch --precision single spgemm gen:rmat:14:8 --planner host
     python -m nsparse_tpu_torch --precision single spgemm gen:fem:4096:16 --method bsr
 
@@ -171,8 +172,25 @@ def _spgemm_bsr(a, dev, trials: int) -> int:
     return _check_spgemm(spgemm_bsr(a.to(dev), a.to(dev), plan_d), a)
 
 
+def _layout_line(plan, planner: str) -> str:
+    detail = ""
+    if plan.layout == "window":
+        w = plan.win
+        detail = (f", numeric form {'v2' if w.fused_expand else 'v1'}, bank "
+                  f"{w.bank_rows} rows")
+    elif plan.layout == "global":
+        pw = plan.glob.pw
+        detail = (f", {'aligned' if pw.aligned else 'unaligned'} pieces, "
+                  f"table {pw.table_rows} rows")
+    return f"layout: {plan.layout} ({planner} plan{detail})"
+
+
 def cmd_spgemm(args) -> int:
-    from nsparse_tpu_torch.ops.spgemm import spgemm_numeric, spgemm_plan
+    from nsparse_tpu_torch.ops.spgemm import (
+        spgemm_numeric,
+        spgemm_plan,
+        spgemm_plan_device,
+    )
     from nsparse_tpu_torch.ops.spgemm_bsr import choose_spgemm_path
 
     dtype = np.float32 if args.precision == "single" else np.float64
@@ -188,17 +206,26 @@ def cmd_spgemm(args) -> int:
     if method == "bsr":
         return _spgemm_bsr(a, dev, args.trials)
 
+    # auto: the one-shot device planner, as the JAX CLI without a cache
+    planner = "device" if args.planner == "auto" else args.planner
+    a_d = a.to(dev)
     t0 = time.perf_counter()
-    plan = spgemm_plan(a, a)
-    sym_ms = (time.perf_counter() - t0) * 1e3
+    if planner == "host":
+        plan = spgemm_plan(a, a)
+        sym_ms = (time.perf_counter() - t0) * 1e3
+        plan_d = plan.to(dev)
+    else:
+        plan = plan_d = spgemm_plan_device(a_d, a_d)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sym_ms = (time.perf_counter() - t0) * 1e3
     # the compression funnel the reference prints (spgemm_hash.cu:64)
     print(f"nnz(A): {a.nnz}  intermediate products: {plan.n_products}  "
           f"nnz(C): {plan.c_nnz}")
-    print(f"symbolic (host plan, {plan.planner} planner): {sym_ms:.1f} ms")
-    print(f"numeric form: {'v2' if plan.win.fused_expand else 'v1'} (bank "
-          f"{plan.win.bank_rows} rows)")
+    print(f"symbolic ({planner} plan, {plan.planner} planner): "
+          f"{sym_ms:.1f} ms")
+    print(_layout_line(plan, planner))
 
-    plan_d, a_d = plan.to(dev), a.to(dev)
     ms, where = _timed(lambda: spgemm_numeric(plan_d, a_d, a_d), dev,
                        args.trials)
     line = f"SpGEMM numeric [{where}]: {ms:.4f} ms"
@@ -248,12 +275,15 @@ def main(argv=None) -> int:
     add_device(sp)
     sp.set_defaults(fn=cmd_spmv)
 
-    sg = sub.add_parser("spgemm", help="C = A @ A with a host plan")
+    sg = sub.add_parser("spgemm", help="C = A @ A through a plan")
     sg.add_argument("matrix")
     sg.add_argument("--trials", type=int, default=11)
-    sg.add_argument("--planner", choices=["host"], default="host",
-                    help="symbolic phase of the esc method; only the host "
-                         "planner is ported")
+    sg.add_argument("--planner", choices=["auto", "host", "device"],
+                    default="auto",
+                    help="symbolic phase of the esc method: device = "
+                         "one-shot on the card (auto, the default); host = "
+                         "the reusable plan in its window, global or sort "
+                         "layout")
     sg.add_argument("--method", choices=["auto", "esc", "bsr"],
                     default="auto",
                     help="esc (window path), bsr (dense tile products) or "

@@ -5,7 +5,8 @@
 // stream arrive as void*, the entry launches on that stream, never
 // synchronises or allocates, and returns cudaGetLastError() so the Python
 // wrapper can raise on a refused launch.  Each kernel is instantiated for
-// float and double.
+// float and double, but for K4's K-fold mode, which sums (float only, as
+// on the TPU).
 #pragma once
 
 #include <cstdint>

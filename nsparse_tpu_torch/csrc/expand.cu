@@ -6,13 +6,18 @@
 //                         = 0                                        otherwise
 // Gap runs (window slack, padding windows) have live_len 0.
 //
-// Piece mode (the v2 numeric's fallback pool).  Per 1024-slot subtile i of
-// one piece-budget class (J pieces, cuts non-decreasing):
-//   out[i * 1024 + p] = bank[boffs[i, j] * 128 + p] * apv[i, j]
-// for the last piece j with cuts[i, j] <= p, 0 if there is none.  The bank
-// is the pre-rolled 8-aligned B table (build_bank.cu), apv the per-piece A
-// values (one K1 gather).  The subtiles land in the class's slice of the
-// class-major compact buffer; gather_tiles8.cu restores arena order.
+// Piece mode (the v2 numeric's fallback pool, the global slab layout).
+// Per 1024-slot subtile i of one piece-budget class (J pieces, cuts
+// non-decreasing):
+//   out[i * 1024 + p] = src[boffs[i, j] * row_scale + p] * apv[i, j]
+// for the last piece j with cuts[i, j] <= p, 0 if there is none.  In the
+// aligned mode (row_scale 128) src is the pre-rolled bank of the 8-aligned
+// B table (build_bank.cu) and boffs are bank-row codes; in the flat mode
+// (row_scale 1, the TPU's unaligned mode, for tables past its bank limit)
+// src is that table itself behind its zero bias and boffs are offsets.
+// apv holds the per-piece A values (one K1 gather).  The subtiles land in
+// the class's slice of the class-major compact buffer; gather_tiles8.cu
+// restores arena order.
 //
 // Replaces piecewise.piecewise_expand (_make_pw_kern through
 // _pw_class_call): the run form for the v1 numeric, where the TPU also
@@ -20,11 +25,13 @@
 // of per-piece A values because it can only move aligned (8, 128)
 // slices, and a run here reads its B row straight from b_val and writes
 // arena order; the piece mode keeps the TPU plan's tables, so the v2
-// numeric runs the same route as the JAX package.
+// numeric and the global layout run the same route as the JAX package.
+// The TPU's unaligned mode realigned each piece with lane rolls; the flat
+// mode needs no alignment at all, only the row scale of the source index.
 //
 // Bound: device memory — one product written per slot (23M slots on
-// R-MAT-14 in the run form, 1.03M in the piece mode), B rows read once
-// per A entry.  Design: run form, one warp per run, so the warp's B reads
+// R-MAT-14 in the run form, 1.03M in the v2 piece mode, 36M in the flat
+// mode on R-MAT-16), B rows read once per A entry.  Design: run form, one warp per run, so the warp's B reads
 // and output writes are both contiguous and the run descriptors are read
 // once per warp; piece mode, one block per subtile, the J pieces staged
 // in shared memory and found per slot by binary search over the cuts, the
@@ -81,7 +88,8 @@ __global__ void expand_pieces_kernel(const T* __restrict__ bank,
                                      const T* __restrict__ apv,
                                      const int32_t* __restrict__ cuts,
                                      const int32_t* __restrict__ boffs,
-                                     int j_budget, T* __restrict__ out) {
+                                     int j_budget, int row_scale,
+                                     T* __restrict__ out) {
   __shared__ int32_t s_cut[kMaxJ];
   __shared__ int32_t s_boff[kMaxJ];
   __shared__ T s_av[kMaxJ];
@@ -105,7 +113,7 @@ __global__ void expand_pieces_kernel(const T* __restrict__ bank,
       }
     }
     o[p] = a > 0
-               ? bank[static_cast<int64_t>(s_boff[a - 1]) * kLanes + p] *
+               ? bank[static_cast<int64_t>(s_boff[a - 1]) * row_scale + p] *
                      s_av[a - 1]
                : T(0);
   }
@@ -114,9 +122,10 @@ __global__ void expand_pieces_kernel(const T* __restrict__ bank,
 template <typename T>
 int launch_expand_pieces(const void* bank, const void* apv, const void* cuts,
                          const void* boffs, int64_t n_sub, int j_budget,
-                         void* out, void* stream) {
+                         int row_scale, void* out, void* stream) {
   constexpr int kThreads = 256;  // 4 slots per thread
-  if (j_budget <= 0 || j_budget > kMaxJ) {
+  if (j_budget <= 0 || j_budget > kMaxJ ||
+      (row_scale != 1 && row_scale != kLanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_sub > 0) {
@@ -124,7 +133,7 @@ int launch_expand_pieces(const void* bank, const void* apv, const void* cuts,
                                nsp::as_stream(stream)>>>(
         static_cast<const T*>(bank), static_cast<const T*>(apv),
         static_cast<const int32_t*>(cuts), static_cast<const int32_t*>(boffs),
-        j_budget, static_cast<T*>(out));
+        j_budget, row_scale, static_cast<T*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -133,18 +142,18 @@ int launch_expand_pieces(const void* bank, const void* apv, const void* cuts,
 
 NSP_EXPORT int nsp_expand_pieces_f32(const void* bank, const void* apv,
                                      const void* cuts, const void* boffs,
-                                     int64_t n_sub, int j_budget, void* out,
-                                     void* stream) {
+                                     int64_t n_sub, int j_budget,
+                                     int row_scale, void* out, void* stream) {
   return launch_expand_pieces<float>(bank, apv, cuts, boffs, n_sub, j_budget,
-                                     out, stream);
+                                     row_scale, out, stream);
 }
 
 NSP_EXPORT int nsp_expand_pieces_f64(const void* bank, const void* apv,
                                      const void* cuts, const void* boffs,
-                                     int64_t n_sub, int j_budget, void* out,
-                                     void* stream) {
+                                     int64_t n_sub, int j_budget,
+                                     int row_scale, void* out, void* stream) {
   return launch_expand_pieces<double>(bank, apv, cuts, boffs, n_sub, j_budget,
-                                      out, stream);
+                                      row_scale, out, stream);
 }
 
 NSP_EXPORT int nsp_expand_f32(const void* a_val, const void* b_val,

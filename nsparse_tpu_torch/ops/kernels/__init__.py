@@ -1,13 +1,18 @@
 """The port's Hopper kernels, each beside its plain PyTorch version.
 
 SpGEMM: K1 ``shuffle.gather`` (also the ELL x-shuffle and flat_gather's
-fallback tiles), K2 ``piecewise.piecewise_expand``, K3
-``window_fused.fused_class_apply``, K4 ``runcopy.runcopy``.  SpMV: K5
-``gather_tiles.gather_subset``, K6 ``gather_tiles.scatter_tiles`` (both
-through ``flat_gather``), K7 ``dia.spmv_dia``, K8 ``spmv_bsr.spmv_bsr``.
-Block SpGEMM: K9 ``bsr_blocks.spgemm_bsr_blocks`` (with K5, K1 and K6 on
-a value re-run's re-blockification).  K10 ``gather_tiles.windowed_gather``
-stands alone, as its TPU counterpart does.
+fallback tiles), K2 ``piecewise.piecewise_expand`` (run form; piece mode
+``expand_pieces`` and flat mode ``expand_pieces_flat``), K3
+``window_fused.fused_class_apply`` (v1; v2 ``fused_class_expand``), K4
+``runcopy.runcopy`` (fixed mode; ``runcopy_kfold`` stands alone, as its
+TPU counterpart does), K11 ``piecewise.build_bank`` (the pre-rolled bank,
+or the flat table), K12 ``gather_tiles.gather_tiles8``; the sort layout
+runs ``flat_gather``.  SpMV: K5 ``gather_tiles.gather_subset``, K6
+``gather_tiles.scatter_tiles`` (both through ``flat_gather``), K7
+``dia.spmv_dia``, K8 ``spmv_bsr.spmv_bsr``.  Block SpGEMM: K9
+``bsr_blocks.spgemm_bsr_blocks`` (with K5, K1 and K6 on a value re-run's
+re-blockification).  K10 ``gather_tiles.windowed_gather`` stands alone,
+as its TPU counterpart does.
 A wrapper runs the plain version for CPU tensors; for CUDA tensors it
 launches its kernel (and adds one to its ``launches`` count) or raises.
 """

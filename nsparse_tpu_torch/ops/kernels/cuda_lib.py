@@ -37,7 +37,7 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "nsp_gather": [_P, _I64, _P, _P, _I64, _P],
     "nsp_expand": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
-    "nsp_expand_pieces": [_P, _P, _P, _P, _I64, _I32, _P, _P],
+    "nsp_expand_pieces": [_P, _P, _P, _P, _I64, _I32, _I32, _P, _P],
     "nsp_fused_class": [
         _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
         ctypes.POINTER(_I32), _P, _I64, _P,
@@ -55,7 +55,9 @@ _SIGNATURES = {
     "nsp_windowed_gather": [_P, _I64, _P, _I32, _I64, _P, _P],
     "nsp_build_bank": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P],
     "nsp_gather_tiles8": [_P, _I64, _P, _I64, _P, _P],
+    "nsp_runcopy_kfold": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P],
 }
+_F32_ONLY = {"nsp_runcopy_kfold"}  # K4's K-fold mode sums in float only
 
 
 def nvcc() -> str:
@@ -94,7 +96,7 @@ class _KernelLib:
                     "nsp_max_smem_optin": ([ctypes.POINTER(_I32)],
                                            ctypes.c_int)}
         for name, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
+            for suffix in ("_f32",) if name in _F32_ONLY else ("_f32", "_f64"):
                 types_of[name + suffix] = (argtypes, ctypes.c_int)
         fns = {}
         for lib in libs:

@@ -6,22 +6,32 @@ expand products ``a.val[e] * b.val[j]``:
 - :class:`ExpandPlan` (the v1 window numeric): every arena slot belongs
   to one run ``(start, b_start, live_len, aidx)`` that reads ``b.val``
   directly; K2 writes arena order.
-- :class:`PiecewisePlan` (the JAX package's aligned mode; the v2 numeric
-  expands its fallback pool with it): per 1024-slot subtile, a J-budget
-  table of pieces ``(cut, bank-row code)`` whose per-piece A values come
-  from one K1 gather; K2's piece mode writes a class-major compact buffer,
-  and K12 (``gather_tiles8``) restores arena order.  The JAX plan also
-  routes run-dense subtiles (more pieces than the largest budget)
-  element-wise through ``scatter_tiles``; 8-aligned runs start at most
-  128 pieces in a subtile, within the largest budget, so aligned plans
-  never have one, and the port's build_piecewise_plan raises if one
-  would arise.
+- :class:`PiecewisePlan` (the v2 numeric expands its fallback pool with
+  it, the global slab layout its whole product arena): per 1024-slot
+  subtile, a J-budget table of pieces ``(cut, source code)`` whose
+  per-piece A values come from one K1 gather; K2's piece mode writes a
+  class-major compact buffer, and K12 (``gather_tiles8``) restores arena
+  order.  Run-dense subtiles (more pieces than the largest budget, 128:
+  at most 128 runs of 8 or more products start in a subtile, so it takes
+  runs with no products, from B rows with no entries) go element-wise, as
+  in the JAX plan: K1 gathers of their table and A values, and K6
+  (``scatter_tiles``) writes them into the arena.
 
-Both read B through the bank (:func:`build_bank`, K11): the 8-aligned B
-table behind ``BIAS`` zero slots, in ``BANK_K`` copies each rolled 8
-slots further, so that bank-row code ``k * bank_rows + q`` names the 1024
-table slots from ``128 q + 8 k - BIAS`` on.  The bank is the JAX array
-element for element; on the TPU it made every piece one aligned slice.
+The pieces read the 8-aligned B table behind ``BIAS`` zero slots, in one
+of the JAX package's two modes:
+
+- aligned (a bank of at most ``BANK_ROWS_MAX`` rows): the bank
+  (:func:`build_bank`, K11) holds the table in ``BANK_K`` copies, each
+  rolled 8 slots further, so that bank-row code ``k * bank_rows + q``
+  names the 1024 table slots from ``128 q + 8 k - BIAS`` on.  The bank is
+  the JAX array element for element; on the TPU it made every piece one
+  aligned slice.
+- unaligned (a larger bank): the code is a flat offset into the table
+  itself (K11 with one copy, ``flat_table_rows`` rows of 128), and K2's
+  flat mode reads ``table[code + p]``.  The JAX package's unaligned mode
+  reads raw ``b.val`` at these offsets, which point into the 8-aligned
+  table, so its C is wrong wherever a B row's degree is not a multiple
+  of 8; the port reads the 8-aligned table.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ TILE = 1024                 # slots per subtile (8 x 128 on the TPU)
 SUB = 8                     # subtiles per class group (the TPU grid step)
 SUPER = SUB * TILE          # the piecewise arena is padded to this
 BIAS = 2048                 # zero slots in front of the B table
+SRC_ROWS = 16               # the JAX unaligned kernel's rows per piece read
 BANK_K = kernelgen.BANK_K
 BANK_ROWS_MAX = kernelgen.BANK_ROWS_MAX
 J_CLASSES = kernelgen.PW_J_CLASSES
@@ -151,46 +162,74 @@ def bank_rows_for(nnz_b8: int) -> int:
     return _round_up(rows, 64)
 
 
-def _check_bank_args(b8_idx: torch.Tensor, bank_rows: int):
+def aligned_b_table(rpt_b: np.ndarray, deg_b: np.ndarray):
+    """Host: the 8-aligned B table, every B row padded to a multiple of 8
+    slots.  Returns ``(deg8, rpt8, b8_idx)``: padded row lengths, row
+    pointers, and the ``b.val`` index of each slot (-1 = a pad zero)."""
+    deg_b = np.asarray(deg_b, dtype=np.int64)
+    deg8 = -(-deg_b // 8) * 8
+    rpt8 = np.zeros(deg8.size + 1, dtype=np.int64)
+    np.cumsum(deg8, out=rpt8[1:])
+    row = np.repeat(np.arange(deg8.size, dtype=np.int64), deg8)
+    off_in = np.arange(int(rpt8[-1]), dtype=np.int64) - rpt8[row]
+    b8_idx = np.where(off_in < deg_b[row],
+                      np.asarray(rpt_b, np.int64)[row] + off_in, -1)
+    return deg8, rpt8, b8_idx
+
+
+def flat_table_rows(nnz_b8: int) -> int:
+    """Rows (of 128) of the unaligned mode's flat table: the BIAS zeros
+    and the 8-aligned table with the JAX package's slack (a subtile and
+    the SRC_ROWS rows its kernel reads per piece)."""
+    return (BIAS + _round_up(nnz_b8 + TILE + SRC_ROWS * LANES, LANES)) \
+        // LANES
+
+
+def _check_bank_args(b8_idx: torch.Tensor, bank_rows: int, copies: int):
     if BIAS + b8_idx.numel() > bank_rows * LANES:
         raise ValueError(f"{b8_idx.numel()} table slots do not fit "
                          f"{bank_rows} bank rows")
+    if not 0 < 8 * copies <= bank_rows * LANES:
+        raise ValueError(f"{copies} copies of a {bank_rows}-row bank")
 
 
 def build_bank_plain(b8_idx: torch.Tensor, bank_rows: int,
-                     b_val: torch.Tensor) -> torch.Tensor:
+                     b_val: torch.Tensor, copies: int = BANK_K
+                     ) -> torch.Tensor:
     """Plain PyTorch version of K11."""
-    _check_bank_args(b8_idx, bank_rows)
+    _check_bank_args(b8_idx, bank_rows, copies)
     n = bank_rows * LANES
     dev = b_val.device
     j = torch.full((n,), -1, dtype=torch.long, device=dev)
     j[BIAS : BIAS + b8_idx.numel()] = b8_idx.long()
     flat = shuffle.gather_plain(b_val, j)
     roll = (torch.arange(n, device=dev)[None, :]
-            + 8 * torch.arange(BANK_K, device=dev)[:, None]) % n
-    return flat[roll].reshape(BANK_K * bank_rows, LANES)
+            + 8 * torch.arange(copies, device=dev)[:, None]) % n
+    return flat[roll].reshape(copies * bank_rows, LANES)
 
 
 def build_bank(b8_idx: torch.Tensor, bank_rows: int,
-               b_val: torch.Tensor) -> torch.Tensor:
-    """K11: the (BANK_K * bank_rows, 128) bank of B values.  Copy k is
+               b_val: torch.Tensor, copies: int = BANK_K) -> torch.Tensor:
+    """K11: the (copies * bank_rows, 128) bank of B values.  Copy k is
     the flat table ``flat[j] = b_val[b8_idx[j - BIAS]]`` (0 outside the
     table, where ``b8_idx`` is -1 or outside ``b_val``) rolled by -8k:
     ``bank[k * bank_rows * 128 + t] = flat[(t + 8k) mod (bank_rows * 128)]``.
+    The aligned piece mode reads ``BANK_K`` copies; one copy is the flat
+    table of the unaligned mode.
 
     CPU tensors take :func:`build_bank_plain`; CUDA tensors launch the
     kernel (``csrc/build_bank.cu``) or raise.
     """
     if b_val.device.type == "cpu":
-        return build_bank_plain(b8_idx, bank_rows, b_val)
-    _check_bank_args(b8_idx, bank_rows)
+        return build_bank_plain(b8_idx, bank_rows, b_val, copies)
+    _check_bank_args(b8_idx, bank_rows, copies)
     cuda_lib.require_cuda("build_bank", b_val, b8_idx)
-    out = torch.empty(BANK_K * bank_rows, LANES, dtype=b_val.dtype,
+    out = torch.empty(copies * bank_rows, LANES, dtype=b_val.dtype,
                       device=b_val.device)
     fn = cuda_lib.entry("nsp_build_bank", b_val.dtype)
     with torch.cuda.device(b_val.device):
         rc = fn(cuda_lib.ptr(b_val), b_val.numel(), cuda_lib.ptr(b8_idx),
-                b8_idx.numel(), bank_rows, BIAS, BANK_K, cuda_lib.ptr(out),
+                b8_idx.numel(), bank_rows, BIAS, copies, cuda_lib.ptr(out),
                 cuda_lib.stream(b_val))
     cuda_lib.check(rc, "build_bank")
     build_bank.launches += 1
@@ -205,23 +244,28 @@ build_bank.launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class PiecewisePlan:
-    """Piece tables of the aligned-bank expansion of a product arena
-    ``[0, n)`` (zero beyond ``n``, padded to ``n_pad``).
+    """Piece tables of the expansion of a product arena ``[0, n)`` (zero
+    beyond ``n``, padded to ``n_pad``) from the 8-aligned B table.
 
     Attributes:
       ids: per class of ``J_CLASSES``, (n_groups * SUB,) int32 arena
         subtile ids (-1 = group pad, a zero tile).
       cuts: per class, (n_groups * SUB * J,) int32 piece starts within
-        each subtile, non-decreasing (TILE = inert piece).
-      boffs: per class, (n_groups * SUB * J,) int32 bank-row codes.
+        each subtile, non-decreasing (TILE or more = inert piece).
+      boffs: per class, (n_groups * SUB * J,) int32 source codes: bank-row
+        codes in the aligned mode, flat table offsets in the unaligned one.
       apv_idx: (sum of the classes' pieces,) int32 ``a.val`` index of
         every piece, classes concatenated (-1 = zero: gap and pad runs);
         ``apv_splits`` bound each class's slice.
       arena_src: (n_pad / TILE,) int32 compact tile of each arena tile;
         dead subtiles name the tile past the compact buffer (the JAX
         plan's trailing zero tile), which K12 reads as zeros.
+      fb_ids: (n_fb,) int32 run-dense subtiles; fb_bidx / fb_aidx: (n_fb
+        * TILE,) int32 8-aligned table index (-1 = zero) and ``a.val``
+        index (``nnz_a`` = zero) of each of their slots.
       n, n_pad, nnz_a: arena, padded arena and ``a.val`` sizes; nnz_b:
-        the 8-aligned B table's length; bank_rows: the bank it reads.
+        the 8-aligned B table's length; aligned: the mode; bank_rows: the
+        bank the aligned mode reads (0 in the unaligned mode).
     """
 
     ids: Tuple[torch.Tensor, ...]
@@ -229,17 +273,27 @@ class PiecewisePlan:
     boffs: Tuple[torch.Tensor, ...]
     apv_idx: torch.Tensor
     arena_src: torch.Tensor
+    fb_ids: torch.Tensor
+    fb_bidx: torch.Tensor
+    fb_aidx: torch.Tensor
     apv_splits: Tuple[Tuple[int, int], ...]
     n: int
     n_pad: int
     nnz_a: int
     nnz_b: int
+    aligned: bool
     bank_rows: int
 
     @property
     def n_compact(self) -> int:
         """Tiles of the class-major compact buffer."""
         return sum(int(i.shape[0]) for i in self.ids)
+
+    @property
+    def table_rows(self) -> int:
+        """Rows (of 128) of what the pieces read: the bank, or the flat
+        table."""
+        return self.bank_rows if self.aligned else flat_table_rows(self.nnz_b)
 
     def to(self, device) -> "PiecewisePlan":
         return to_device(self, device)
@@ -254,14 +308,16 @@ def _check_codes(code: np.ndarray, bank_rows: int, what: str) -> None:
 
 def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
                          nnz_b: int) -> PiecewisePlan:
-    """Host: route runs into per-subtile piece tables (the JAX package's
-    aligned-bank mode).
+    """Host: route runs into per-subtile piece tables, in the aligned mode
+    when the bank fits ``BANK_ROWS_MAX`` rows, else the unaligned mode
+    (the JAX package's rule and tables).
 
-    ``run_start``: ascending product positions where a run begins (run 0
-    at 0), multiples of 8; ``run_boff``: the 8-aligned table offset of
-    each run's first product, a multiple of 8; ``run_aidx``: its
-    ``a.val`` index (``nnz_a`` for gap runs); ``nnz_b``: the aligned
-    table's length.  ``[n, n_pad)`` is routed as one pad run of zeros.
+    ``run_start``: non-decreasing product positions where a run begins
+    (run 0 at 0; a run with no products starts where the next one does),
+    multiples of 8; ``run_boff``: the 8-aligned table offset of each
+    run's first product, a multiple of 8; ``run_aidx``: its ``a.val``
+    index (``nnz_a`` for gap runs); ``nnz_b``: the aligned table's
+    length.  ``[n, n_pad)`` is routed as one pad run of zeros.
     """
     run_start = np.asarray(run_start, dtype=np.int64)
     run_boff = np.asarray(run_boff, dtype=np.int64)
@@ -270,15 +326,14 @@ def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
     if not ((run_start % 8 == 0).all() and (run_boff % 8 == 0).all()):
         raise ValueError("aligned pieces need 8-aligned runs and offsets")
     if run_start.size and (run_start[0] != 0
-                           or not (np.diff(run_start) > 0).all()):
+                           or not (np.diff(run_start) >= 0).all()):
         raise ValueError("piece runs must start at 0 and ascend")
     if not ((run_aidx >= 0) & (run_aidx <= nnz_a)).all():
         raise ValueError("piece run A index out of range")
     rows_tot = bank_rows_for(nnz_b)
-    if rows_tot > BANK_ROWS_MAX:
-        raise NotImplementedError(
-            f"a bank of {rows_tot} rows takes the unaligned piece mode "
-            f"(more than {BANK_ROWS_MAX} rows), which is not ported")
+    aligned = rows_tot <= BANK_ROWS_MAX
+    if not aligned:
+        rows_tot = 0
 
     # the pad run: zero a.val slot, table offset 0
     run_start = np.concatenate([run_start, [n]])
@@ -334,9 +389,12 @@ def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
         base = sub_base[sc][:, None]
         cut = np.where(valid, np.maximum(run_start[rc] - base, 0), TILE)
         eff = run_boff[rc] - run_start[rc] + base + BIAS
-        # bank-row code: eff = 128 q + 8 k -> row q of copy k
-        boff = np.where(valid, (eff % LANES) // 8 * rows_tot + eff // LANES,
-                        0)
+        if aligned:
+            # bank-row code: eff = 128 q + 8 k -> row q of copy k
+            boff = np.where(valid,
+                            (eff % LANES) // 8 * rows_tot + eff // LANES, 0)
+        else:
+            boff = np.where(valid, eff, BIAS)
         # inert pieces repeat the previous piece's A index (the JAX
         # package keeps its gather stream near-monotone); never read
         flat = np.where(valid, run_aidx[rc], -1).reshape(-1)
@@ -347,18 +405,29 @@ def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
         boffs_l.append(boff.reshape(-1))
         aidx_l.append(ai)
 
-    # arena tile -> compact tile; dead subtiles name the tile past the end
+    # arena tile -> compact tile; dead and run-dense subtiles name the
+    # tile past the end
     arena_src = np.where(cpos_of >= 0, cpos_of, cbase)
-    if (sub_live & (cls_of < 0)).any():
-        raise AssertionError("a subtile holds more pieces than the largest "
-                             "budget (runs not 8-aligned?)")
+    # run-dense subtiles, element by element
+    fb_subs = np.flatnonzero(sub_live & (cls_of < 0)).astype(np.int64)
+    pos = (fb_subs[:, None] * TILE + np.arange(TILE)[None, :]).reshape(-1)
+    ridx = np.searchsorted(run_start, pos, side="right") - 1
+    fb_bidx = np.where(pos < n, run_boff[ridx] + pos - run_start[ridx], -1)
+    fb_aidx = np.where(pos < n, run_aidx[ridx], 0)
 
+    n_tbl = flat_table_rows(nnz_b) * LANES
     for J, c, b in zip(J_CLASSES, cuts_l, boffs_l):
-        c2 = c.reshape(-1, J)
-        if c2.size and not ((c2 >= 0) & (c2 <= TILE)).all() \
-                or (np.diff(c2, axis=1) < 0).any():
+        # a piece at or past TILE is inert: the cuts must ascend up to it
+        # (a run with no products may leave one past TILE before the pads)
+        c2 = np.minimum(c.reshape(-1, J), TILE)
+        if c2.size and not (c2 >= 0).all() or (np.diff(c2, axis=1) < 0).any():
             raise ValueError("piece cuts must ascend inside their subtile")
-        _check_codes(b, rows_tot, "piece table")
+        # only a piece that starts inside its subtile is ever read
+        live = b[c < TILE]
+        if aligned:
+            _check_codes(live, rows_tot, "piece table")
+        elif live.size and not ((live >= 0) & (live + TILE <= n_tbl)).all():
+            raise ValueError("piece table: offset outside the flat table")
 
     aidx_cat = np.concatenate(aidx_l)
     splits, off = [], 0
@@ -371,9 +440,10 @@ def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
         boffs=tuple(t(b) for b in boffs_l),
         apv_idx=t(np.where(aidx_cat == nnz_a, -1, aidx_cat)),
         arena_src=t(arena_src),
+        fb_ids=t(fb_subs), fb_bidx=t(fb_bidx), fb_aidx=t(fb_aidx),
         apv_splits=tuple(splits),
         n=int(n), n_pad=int(n_pad), nnz_a=int(nnz_a), nnz_b=int(nnz_b),
-        bank_rows=int(rows_tot),
+        aligned=bool(aligned), bank_rows=int(rows_tot),
     )
 
 
@@ -389,31 +459,45 @@ def _check_pieces(j_budget: int, cuts, boffs, apv, bank, out):
         raise TypeError("apv, bank and out must share a dtype")
 
 
-def piece_sources(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor):
+def piece_sources(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
+                  row_scale: int = LANES):
     """Per slot of each subtile of one class: its piece (the last whose cut
-    is <= the slot, -1 if none) and its flat bank index."""
+    is <= the slot, -1 if none) and its flat source index ``code *
+    row_scale + slot`` (row_scale 128: bank-row codes; 1: flat offsets)."""
     n = cuts.numel() // j_budget
     pos = torch.arange(TILE, device=cuts.device)
     c = cuts.view(n, j_budget).long()
     sel = torch.searchsorted(c, pos.expand(n, TILE).contiguous(),
                              right=True) - 1
     bo = boffs.view(n, j_budget).long().gather(1, sel.clamp(min=0))
-    return sel, bo * LANES + pos
+    return sel, bo * row_scale + pos
+
+
+def _pieces_plain(j_budget, cuts, boffs, apv, src, out, row_scale):
+    _check_pieces(j_budget, cuts, boffs, apv, src, out)
+    n = cuts.numel() // j_budget
+    if not n:
+        return out
+    sel, sidx = piece_sources(j_budget, cuts, boffs, row_scale)
+    av = apv.view(n, j_budget).gather(1, sel.clamp(min=0))
+    out.view(n, TILE)[:] = torch.where(sel >= 0, src.reshape(-1)[sidx] * av,
+                                       0)
+    return out
 
 
 def expand_pieces_plain(j_budget: int, cuts: torch.Tensor,
                         boffs: torch.Tensor, apv: torch.Tensor,
                         bank: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2's piece mode (fills ``out``)."""
-    _check_pieces(j_budget, cuts, boffs, apv, bank, out)
-    n = cuts.numel() // j_budget
-    if not n:
-        return out
-    sel, bidx = piece_sources(j_budget, cuts, boffs)
-    av = apv.view(n, j_budget).gather(1, sel.clamp(min=0))
-    out.view(n, TILE)[:] = torch.where(sel >= 0, bank.reshape(-1)[bidx] * av,
-                                       0)
-    return out
+    return _pieces_plain(j_budget, cuts, boffs, apv, bank, out, LANES)
+
+
+def expand_pieces_flat_plain(j_budget: int, cuts: torch.Tensor,
+                             boffs: torch.Tensor, apv: torch.Tensor,
+                             table: torch.Tensor,
+                             out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2's flat mode (fills ``out``)."""
+    return _pieces_plain(j_budget, cuts, boffs, apv, table, out, 1)
 
 
 def expand_pieces(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
@@ -436,8 +520,8 @@ def expand_pieces(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
         fn = cuda_lib.entry("nsp_expand_pieces", out.dtype)
         with torch.cuda.device(out.device):
             rc = fn(cuda_lib.ptr(bank), cuda_lib.ptr(apv), cuda_lib.ptr(cuts),
-                    cuda_lib.ptr(boffs), n, j_budget, cuda_lib.ptr(out),
-                    cuda_lib.stream(out))
+                    cuda_lib.ptr(boffs), n, j_budget, LANES,
+                    cuda_lib.ptr(out), cuda_lib.stream(out))
         cuda_lib.check(rc, "expand_pieces")
         expand_pieces.launches += 1
     return out
@@ -446,21 +530,60 @@ def expand_pieces(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
 expand_pieces.launches = 0
 
 
+def expand_pieces_flat(j_budget: int, cuts: torch.Tensor,
+                       boffs: torch.Tensor, apv: torch.Tensor,
+                       table: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """K2 flat mode (the unaligned piece mode): as :func:`expand_pieces`,
+    but slot p of a piece reads ``table[boff + p]`` from the flat table
+    (the plan checks that every read lies inside it).
+
+    CPU tensors take :func:`expand_pieces_flat_plain`; CUDA tensors launch
+    the kernel (``csrc/expand.cu``, row scale 1) or raise.
+    """
+    if out.device.type == "cpu":
+        return expand_pieces_flat_plain(j_budget, cuts, boffs, apv, table,
+                                        out)
+    _check_pieces(j_budget, cuts, boffs, apv, table, out)
+    n = cuts.numel() // j_budget
+    if n:
+        cuda_lib.launch("expand_pieces_flat", "nsp_expand_pieces", table, apv,
+                        cuts, boffs, n, j_budget, 1, out)
+        expand_pieces_flat.launches += 1
+    return out
+
+
+expand_pieces_flat.launches = 0
+
+
+def build_table(plan: PiecewisePlan, b8_idx: torch.Tensor,
+                b_val: torch.Tensor, bank=build_bank) -> torch.Tensor:
+    """What the plan's pieces read, by K11: the BANK_K-copy bank in the
+    aligned mode, the one-copy flat table in the unaligned mode."""
+    return bank(b8_idx, plan.table_rows, b_val,
+                BANK_K if plan.aligned else 1)
+
+
 def expand_from_bank(plan: PiecewisePlan, a_val: torch.Tensor,
                      bank: torch.Tensor, gather=shuffle.gather,
                      pieces=expand_pieces,
-                     tiles8=gather_tiles.gather_tiles8) -> torch.Tensor:
+                     tiles8=gather_tiles.gather_tiles8,
+                     pieces_flat=expand_pieces_flat,
+                     scatter=gather_tiles.scatter_tiles) -> torch.Tensor:
     """The (n_pad,) product arena of a :class:`PiecewisePlan`: per-piece A
     values (K1), each class's pieces into the class-major compact buffer
-    (K2 piece mode), then arena order (K12).  The kernel arguments let a
-    caller pass their plain versions."""
+    (K2 piece mode from the bank, or flat mode from the flat table; both
+    from :func:`build_table`), then arena order (K12); run-dense subtiles
+    element-wise (K1 twice, K6).  The kernel arguments let a caller pass
+    their plain versions."""
     if a_val.numel() < plan.nnz_a:
         raise ValueError("a.val shorter than the plan's nnz")
     if a_val.dtype != bank.dtype:
         raise TypeError("a.val and the bank must share a dtype")
-    if bank.shape != (BANK_K * plan.bank_rows, LANES):
-        raise ValueError(f"bank of shape {tuple(bank.shape)} for "
-                         f"{plan.bank_rows} bank rows")
+    rows = plan.table_rows * (BANK_K if plan.aligned else 1)
+    if bank.shape != (rows, LANES):
+        raise ValueError(f"table of shape {tuple(bank.shape)} for a plan "
+                         f"that reads {rows} rows")
+    run = pieces if plan.aligned else pieces_flat
     apv = gather(a_val, plan.apv_idx)
     compact = torch.empty(plan.n_compact * TILE, dtype=a_val.dtype,
                           device=a_val.device)
@@ -469,10 +592,17 @@ def expand_from_bank(plan: PiecewisePlan, a_val: torch.Tensor,
             J_CLASSES, plan.ids, plan.cuts, plan.boffs, plan.apv_splits):
         n_sub = int(ids.shape[0])
         if n_sub:
-            pieces(J, cuts, boffs, apv[lo:hi], bank,
-                   compact[cbase * TILE : (cbase + n_sub) * TILE])
+            run(J, cuts, boffs, apv[lo:hi], bank,
+                compact[cbase * TILE : (cbase + n_sub) * TILE])
         cbase += n_sub
-    return tiles8(compact, plan.arena_src)
+    arena = tiles8(compact, plan.arena_src)
+    if plan.fb_ids.numel():
+        # copy 0 of the bank, like the flat table, is the 8-aligned table
+        # behind BIAS zeros, so index -1 lands on a zero
+        flat = bank.reshape(-1)
+        vals = gather(flat, plan.fb_bidx + BIAS) * gather(a_val, plan.fb_aidx)
+        scatter(arena, plan.fb_ids, vals, TILE)
+    return arena
 
 
 def piecewise_expand(plan, a_val: torch.Tensor, b_val: torch.Tensor,
@@ -483,13 +613,13 @@ def piecewise_expand(plan, a_val: torch.Tensor, b_val: torch.Tensor,
     An :class:`ExpandPlan` launches K2 (run form; CPU tensors take
     :func:`expand_plain`, CUDA tensors the kernel, ``csrc/expand.cu``, or
     raise).  A :class:`PiecewisePlan` takes the piece route of
-    :func:`expand_from_bank` on ``bank`` (from :func:`build_bank`; only
+    :func:`expand_from_bank` on ``bank`` (from :func:`build_table`; only
     its dtype is read from ``b_val``).
     """
     if isinstance(plan, PiecewisePlan):
         if bank is None:
-            raise ValueError("a PiecewisePlan expands from the bank: pass "
-                             "bank=build_bank(b8_idx, bank_rows, b_val)")
+            raise ValueError("a PiecewisePlan expands from its table: pass "
+                             "bank=build_table(plan, b8_idx, b_val)")
         if b_val.dtype != a_val.dtype:
             raise TypeError("a.val and b.val must share a dtype")
         return expand_from_bank(plan, a_val, bank)

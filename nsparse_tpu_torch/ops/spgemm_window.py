@@ -45,6 +45,7 @@ from nsparse_tpu_torch.ops.kernels.piecewise import (
     BIAS,
     ExpandPlan,
     PiecewisePlan,
+    aligned_b_table,
     bank_rows_for,
     build_expand_plan,
     build_piecewise_plan,
@@ -212,7 +213,6 @@ class WindowStructure:
       n_compact: total class-arena length (merge source prefix).
       fused_expand: the v2 form; bank_rows: the bank's rows (both forms,
         as in the JAX plan).
-      nnz_a / nnz_b: the value-array sizes the plan was built for.
     """
 
     expand: ExpandPlan | None
@@ -231,8 +231,6 @@ class WindowStructure:
     n_compact: int
     fused_expand: bool
     bank_rows: int
-    nnz_a: int
-    nnz_b: int
 
     def to(self, device) -> "WindowStructure":
         return to_device(self, device)
@@ -807,8 +805,9 @@ def build_window_structure(
     gap_lens = np.concatenate(gap_lens)
     nch = -(-gap_lens // GAP_CHUNK)
     gch = np.repeat(gap_starts, nch)
-    cum = np.concatenate([[0], np.cumsum(nch)[:-1]])
-    kin = np.arange(gch.size, dtype=np.int64) - np.repeat(cum, nch)
+    # a layout without slack has no gaps, and then no gap runs
+    kin = np.arange(gch.size, dtype=np.int64) - np.repeat(
+        np.cumsum(nch) - nch, nch)
     gap_run_start = gch + kin * GAP_CHUNK
 
     keep = seg8 > 0
@@ -822,20 +821,14 @@ def build_window_structure(
     ra_s = run_aidx[ordr]
 
     # --- the 8-aligned B table and the numeric form -----------------------
-    deg8 = -(-deg_b // 8) * 8
-    rpt8 = np.zeros(deg8.size + 1, dtype=np.int64)
-    np.cumsum(deg8, out=rpt8[1:])
+    _, rpt8, b8_idx = aligned_b_table(rpt_b, deg_b)
     b8_len = int(rpt8[-1])
     bank_rows = bank_rows_for(b8_len)
     # the JAX rule, for plans built for the accelerator: the bank's f32
     # bytes (16 copies x 128 lanes x 4 bytes per row) within the budget
     fused_expand = bank_rows * 16 * 512 <= FUSED_BANK_BUDGET
     expand = pw = None
-    b8_idx = np.zeros(0, np.int64)
     if fused_expand:
-        rowb = np.repeat(np.arange(deg8.size, dtype=np.int64), deg8)
-        off_in = np.arange(b8_len, dtype=np.int64) - rpt8[rowb]
-        b8_idx = np.where(off_in < deg_b[rowb], rpt_b[rowb] + off_in, -1)
         rb_s = np.concatenate([
             rpt8[col_a[keep]], np.zeros(n_gap, np.int64)
         ])[ordr]
@@ -846,6 +839,7 @@ def build_window_structure(
                 b8_len,
             )
     else:
+        b8_idx = np.zeros(0, np.int64)
         expand = build_expand_plan(
             rs_s,
             np.concatenate([rpt_b[col_a[keep]], np.zeros(n_gap, np.int64)])[ordr],
@@ -1037,8 +1031,6 @@ def build_window_structure(
         n_compact=arena_len,
         fused_expand=bool(fused_expand),
         bank_rows=int(bank_rows),
-        nnz_a=int(nnz_a),
-        nnz_b=int(nnz_b),
     )
 
 
@@ -1050,9 +1042,12 @@ def apv_values(w: WindowStructure, a_val: torch.Tensor,
 
 
 class NumericOps(NamedTuple):
-    """The kernels of the window numeric phase, by role: v1 runs gather,
-    expand, fused and runcopy; v2 runs bank, gather, fused_v2, pieces,
-    tiles8 and runcopy."""
+    """The kernels of the routed numeric phases, by role: window v1 runs
+    gather, expand, fused and runcopy; window v2 runs bank, gather,
+    fused_v2, pieces, tiles8 and runcopy; the global slab layout
+    (``spgemm.spgemm_numeric_slab``) runs bank, gather, pieces or
+    pieces_flat, tiles8, and scatter where the plan has run-dense
+    subtiles."""
 
     gather: object
     expand: object
@@ -1062,19 +1057,23 @@ class NumericOps(NamedTuple):
     fused_v2: object
     pieces: object
     tiles8: object
+    pieces_flat: object
+    scatter: object
 
 
 KERNEL_OPS = NumericOps(
     shuffle.gather, piecewise.piecewise_expand,
     window_fused.fused_class_apply, runcopy.runcopy, piecewise.build_bank,
     window_fused.fused_class_expand, piecewise.expand_pieces,
-    gather_tiles.gather_tiles8,
+    gather_tiles.gather_tiles8, piecewise.expand_pieces_flat,
+    gather_tiles.scatter_tiles,
 )
 PLAIN_OPS = NumericOps(
     shuffle.gather_plain, piecewise.expand_plain,
     window_fused.fused_class_plain, runcopy.runcopy_plain,
     piecewise.build_bank_plain, window_fused.fused_class_expand_plain,
     piecewise.expand_pieces_plain, gather_tiles.gather_tiles8_plain,
+    piecewise.expand_pieces_flat_plain, gather_tiles.scatter_tiles_plain,
 )
 
 
@@ -1114,7 +1113,8 @@ def v2_fallback(w: WindowStructure, a_val: torch.Tensor, bank: torch.Tensor,
     """v2 fallback: the pool's products through the piece route (K1, K2
     piece mode, K12), then :func:`fallback_segment`."""
     prod = piecewise.expand_from_bank(w.pw, a_val, bank, ops.gather,
-                                      ops.pieces, ops.tiles8)
+                                      ops.pieces, ops.tiles8, ops.pieces_flat,
+                                      ops.scatter)
     return fallback_segment(w, prod, ops)
 
 

@@ -23,6 +23,7 @@ from nsparse_tpu.ops.kernels.flat_gather import build_flat_gather_plan
 from nsparse_tpu.ops.kernels.gather_pallas import gather_tiles8 as j_tiles8
 from nsparse_tpu.ops.kernels.piecewise import build_bank as j_build_bank
 from nsparse_tpu.ops.kernels.piecewise import piecewise_expand as j_expand
+from nsparse_tpu.ops.kernels.runcopy import build_runcopy_plan as j_rc_plan
 from nsparse_tpu.ops.kernels.runcopy import runcopy as j_runcopy
 from nsparse_tpu.ops.kernels.window_fused import fused_class_apply as j_fused
 from nsparse_tpu.ops.spgemm import slab_class_reduce as j_slab_reduce
@@ -52,7 +53,7 @@ def plans():
     ta = nt.rmat_csr(8, edge_factor=8, dtype=np.float64, seed=2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(twin, "FUSED_BANK_BUDGET", 0)
-        tp = nt.spgemm_plan(ta, ta)
+        tp = nt.spgemm_plan(ta, ta, shuffle=True, layout="window")
     return ja, ta, j_plan(ja, ja, shuffle=True, layout="window"), tp
 
 
@@ -150,7 +151,8 @@ def test_slab_class_reduce_matches_jax(monkeypatch, dtype):
     s = sp.csr_matrix(s)
     jp = j_plan(JCSR.from_scipy(s), JCSR.from_scipy(s), shuffle=True,
                 layout="window")
-    tw = nt.spgemm_plan(nt.CSR.from_scipy(s), nt.CSR.from_scipy(s)).win
+    tw = nt.spgemm_plan(nt.CSR.from_scipy(s), nt.CSR.from_scipy(s),
+                        shuffle=True, layout="window").win
     assert tw.fb_shuffle is not None and tw.fb_lvl_idx  # two slab levels
     x = _vals(tw.fb_shuffle.n, dtype, 7)
     want = np.asarray(j_slab_reduce(jnp.asarray(x), jp.win.fb_levels,
@@ -272,7 +274,7 @@ def test_v2_wrappers_raise_off_cpu_without_cuda():
     """K11, K12, K2 piece mode and K3 v2 take their plain versions only
     for CPU tensors; any other device launches the kernel or raises."""
     a = nt.rmat_csr(8, edge_factor=8, dtype=np.float64, seed=2)
-    w = nt.spgemm_plan(a, a).win
+    w = nt.spgemm_plan(a, a, shuffle=True, layout="window").win
     assert w.fused_expand
     wm = w.to("meta")
     fp = wm.fused[0]
@@ -344,14 +346,112 @@ def test_v2_table_checks_reject_bad_tables(bad, match):
 
 
 def test_piecewise_plan_guards():
-    """build_piecewise_plan takes 8-aligned runs only, and a bank beyond
-    BANK_ROWS_MAX (the unaligned mode, not ported) raises."""
+    """build_piecewise_plan takes 8-aligned runs only; a bank beyond
+    BANK_ROWS_MAX takes the unaligned mode (flat table offsets, no bank)."""
     with pytest.raises(ValueError, match="8-aligned"):
         piecewise.build_piecewise_plan([0, 12], [0, 8], [0, 1], 32, 2, 64)
-    with pytest.raises(NotImplementedError, match="unaligned"):
-        piecewise.build_piecewise_plan([0, 8], [0, 8], [0, 1], 32, 2,
-                                       piecewise.BANK_ROWS_MAX * 128)
+    big = piecewise.build_piecewise_plan([0, 8], [0, 8], [0, 1], 32, 2,
+                                         piecewise.BANK_ROWS_MAX * 128)
+    assert (big.aligned, big.bank_rows) == (False, 0)
+    # subtile 0: the offset of slot p of a run is BIAS + its table offset
+    # minus its start, so runs 0 and 1 (table offsets 0 and 8, starts 0
+    # and 8) read from BIAS on, and the pad run (start 32) from BIAS - 32
+    assert big.boffs[1][:3].tolist() == [piecewise.BIAS] * 2 + [
+        piecewise.BIAS - 32]
+    assert big.cuts[1][:3].tolist() == [0, 8, 32]
     plan = piecewise.build_piecewise_plan([0, 8], [0, 8], [0, 1], 16, 2, 16)
     # subtile 0 holds the two runs and the pad run: the J = 4 class
     assert [int(i.numel()) for i in plan.ids] == [0, 8, 0, 0, 0, 0, 0]
     assert plan.arena_src.tolist() == [0] + [8] * 7
+
+
+def _kfold_runs(seed):
+    """Runs grouped by fold factor (K = 1, 2, 4, 8), sub-run strides at
+    least the output length, as tests/test_runcopy.py makes them."""
+    rng = np.random.default_rng(seed)
+    src_off, lens, kfac, stride = [], [], [], []
+    cursor = 0
+    for k, count, lmax in ((1, 8, 600), (2, 6, 300), (4, 5, 150), (8, 4, 80)):
+        for _ in range(count):
+            ln = int(rng.integers(3, lmax))
+            st = ln + int(rng.integers(0, 9))
+            s0 = cursor + int(rng.integers(0, 33))
+            src_off.append(s0)
+            lens.append(ln)
+            kfac.append(k)
+            stride.append(st)
+            cursor = s0 + st * k
+    return [np.asarray(x, np.int64) for x in (src_off, lens, kfac, stride)]
+
+
+def test_runcopy_kfold_matches_jax():
+    """K4's K-fold mode: the destinations equal the JAX package's array
+    for array, and the values the JAX kernel's (interpret mode) within
+    rtol 1e-6 (the JAX kernel may add the K terms in another order); the
+    plain version adds them in t order, so summing by hand in that order
+    gives its values exactly.  float64 raises, as in JAX."""
+    src_off, lens, kfac, stride = _kfold_runs(5)
+    n_src = 1 << 16
+    src = _vals(n_src, np.float32, 9)
+    jp, jdst = j_rc_plan(src_off, lens, n_src, kfac=kfac, stride=stride)
+    tp, tdst = runcopy.build_runcopy_plan(src_off, lens, n_src, kfac=kfac,
+                                          stride=stride)
+    np.testing.assert_array_equal(jdst, tdst)
+    assert tp.n_out == jp.n_out
+    got = runcopy.runcopy(tp, torch.from_numpy(src)).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_runcopy(jp, jnp.asarray(src))),
+                               rtol=1e-6, atol=1e-6)
+    want = np.zeros(tp.n_out, np.float32)
+    for s0, ln, d, k, st in zip(src_off, lens, tdst, kfac, stride):
+        for t in range(k):
+            want[d : d + ln] += src[s0 + t * st : s0 + t * st + ln]
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(NotImplementedError, match="float32"):
+        runcopy.runcopy(tp, torch.from_numpy(src.astype(np.float64)))
+    with pytest.raises(ValueError, match="grouped"):
+        runcopy.build_runcopy_plan([0, 8, 16], [4, 4, 4], 64, kfac=[1, 2, 1],
+                                   stride=[0, 4, 0])
+    with pytest.raises(ValueError, match="outside"):
+        runcopy.build_runcopy_plan([0], [4], 8, kfac=[2], stride=[8])
+
+
+def test_expand_pieces_flat_reads_the_table():
+    """K2's flat mode reads ``table[boff + p]`` (row scale 1) where the
+    piece mode reads ``bank[boff * 128 + p]``; K11 with one copy builds
+    the flat table: the 8-aligned B table behind BIAS zeros."""
+    b_val = torch.arange(1, 41, dtype=torch.float64)
+    b8_idx = torch.tensor([0, 1, 2, -1, -1, -1, -1, -1] + list(range(3, 11)),
+                          dtype=torch.int32)
+    rows = piecewise.flat_table_rows(16)
+    tbl = piecewise.build_bank(b8_idx, rows, b_val, 1).reshape(-1)
+    assert tbl.numel() == rows * 128 and not tbl[: piecewise.BIAS].any()
+    assert tbl[piecewise.BIAS : piecewise.BIAS + 16].tolist() == [
+        1, 2, 3, 0, 0, 0, 0, 0, 4, 5, 6, 7, 8, 9, 10, 11]
+    cuts = torch.tensor([0, 3, 1024, 1024], dtype=torch.int32)
+    boffs = torch.tensor([piecewise.BIAS, piecewise.BIAS + 5, 0, 0],
+                         dtype=torch.int32)
+    apv = torch.tensor([2.0, -1.0, 5.0, 5.0], dtype=torch.float64)
+    out = torch.full((2048,), 9.0, dtype=torch.float64)
+    piecewise.expand_pieces_flat(2, cuts, boffs, apv, tbl, out)
+    p = torch.arange(1024)
+    want = torch.where(p < 3, 2.0 * tbl[piecewise.BIAS + p],
+                       -tbl[piecewise.BIAS + 5 + p])
+    assert torch.equal(out[:1024], want)
+    assert out[:4].tolist() == [2.0, 4.0, 6.0, -4.0]
+    assert not out[1024:].any()
+
+
+def test_flat_and_kfold_wrappers_raise_off_cpu_without_cuda():
+    """The new wrappers take their plain versions only for CPU tensors."""
+    meta = dict(device="meta")
+    i32 = dict(meta, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        piecewise.expand_pieces_flat(
+            2, torch.zeros(2, **i32), torch.zeros(2, **i32),
+            torch.zeros(2, **meta), torch.zeros(4096, **meta),
+            torch.zeros(1024, **meta))
+    plan, _ = runcopy.build_runcopy_plan([0], [4], 16, kfac=[2], stride=[8])
+    with pytest.raises(ValueError, match="CUDA device"):
+        runcopy.runcopy(plan.to("meta"), torch.zeros(16, **meta))
+    assert piecewise.expand_pieces_flat.launches == 0
+    assert runcopy.runcopy_kfold.launches == 0

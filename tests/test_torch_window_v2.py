@@ -95,9 +95,9 @@ def v2_plans(router):
                 extras = {}
                 jp = j_plan(ja, ja, shuffle=True, layout="window",
                             extras_out=extras)
-                tp = nt.spgemm_plan(ta, ta)
+                tp = nt.spgemm_plan(ta, ta, shuffle=True, layout="window")
                 mp.setattr(twin, "FUSED_BANK_BUDGET", 0)
-                tp1 = nt.spgemm_plan(ta, ta)
+                tp1 = nt.spgemm_plan(ta, ta, shuffle=True, layout="window")
             cache[case] = (ja, ta, jp, extras, tp, tp1)
         return cache[case]
 
@@ -237,7 +237,7 @@ def test_v2_slice_matches_jax(case, dtype, v2_plans, monkeypatch):
         monkeypatch.setattr(jwin, "N_WIN_CLASSES", 2)
         monkeypatch.setattr(tkg, "N_WIN_CLASSES", 2)
     ja, ta = _pair_of(case, dtype)
-    tp = nt.spgemm_plan(ta, ta)
+    tp = nt.spgemm_plan(ta, ta, shuffle=True, layout="window")
     assert tp.win.fused_expand
     jp = j_plan(ja, ja, shuffle=True, layout="window")
     _check_values(ja, j_numeric(jp, ja, ja), ta, nt.spgemm_numeric(tp, ta, ta),
@@ -253,12 +253,12 @@ def test_budget_rule(monkeypatch):
     """v2 exactly when the f32 bank (rows x 16 copies x 512 bytes) fits
     FUSED_BANK_BUDGET; at a budget of 0, v1."""
     a = nt.rmat_csr(8, edge_factor=8, dtype=np.float64, seed=2)
-    w = nt.spgemm_plan(a, a).win
+    w = nt.spgemm_plan(a, a, shuffle=True, layout="window").win
     assert w.fused_expand and w.expand is None and w.b8_idx.numel()
     need = w.bank_rows * 16 * 512
     for budget, v2 in ((need, True), (need - 1, False), (0, False)):
         monkeypatch.setattr(twin, "FUSED_BANK_BUDGET", budget)
-        w = nt.spgemm_plan(a, a).win
+        w = nt.spgemm_plan(a, a, shuffle=True, layout="window").win
         assert w.fused_expand == v2
         assert (w.expand is None) == v2 and (w.fb_off == 0 or not v2)
         assert all(f.expand == v2 for f in w.fused)
