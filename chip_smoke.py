@@ -32,8 +32,8 @@ Phases (any failure exits non-zero before the final line):
                                 flat table, K1 x3, K2 flat mode per class,
                                 K12;
        spgemm-sort              R-MAT-14, ``shuffle=False``: the K5/K1/K6
-                                launches of its two gather plans, two runs
-                                equal;
+                                launches of its two gather plans (K5 once
+                                per plan), two runs equal;
        spgemm-oneshot           ``nt.spgemm(a, a)``, the device planner:
                                 no kernel launched; plan and numeric phase
                                 timed whole beside cuSPARSE;
@@ -68,18 +68,26 @@ Phases (any failure exits non-zero before the final line):
      and K12 on R-MAT-14, by CUDA events, by the profiler's device time
      and queued behind a device sleep, beside their bounds, and K6's
      scalar branch on the same values;
+  7b. the bank and the subset gather: K11's and K5's vector and scalar
+     branches against their plain versions (``torch.equal``, f32 and
+     f64; a 16-copy bank whose tails wrap, one copy, a misaligned
+     ``b8_idx``; an ``other`` shorter than the slots, a misaligned
+     ``out``); K11 on the v2 path's call, K5 on the largest ELL call and
+     on the FEM value re-run, the same three ways, beside their bounds
+     and ``b_val[idx]`` / ``src[idx]``;
   8. launch cost: host µs per call of each step of the ctypes launch
-     path alone (old and new), of K12 and K6 through ``cuda_lib.launch``,
-     of K1 through the old path (the control) and of the PyTorch calls
-     that compute the same functions, at 1 tile and at the main path's
-     own calls: the median of LAUNCH_ROUNDS rounds of LAUNCH_REPS
-     back-to-back calls, every step in each round;
+     path alone (old and new), of K12, K6, K11 and K5 through
+     ``cuda_lib.launch``, of K1 through the old path (the control) and of
+     the PyTorch calls that compute the same functions, at 1 tile (1
+     unit) and at the main path's own calls: the median of LAUNCH_ROUNDS
+     rounds of LAUNCH_REPS back-to-back calls, every step in each round;
   9. each kernel against its plain PyTorch version on the card, on the
      inputs its paths gave it, timed with CUDA events beside the plain
      version, one PyTorch call that computes the same function (where
      there is one) and the least time the card could take (its bound).
 Every path sets the launch counts to 0 just before it runs and reads them
-just after, and fails if a kernel of that path never launched.  The
+just after, and fails if a kernel of that path never launched; K5 must
+launch exactly once per ``flat_gather`` whose plan has class units.  The
 second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -334,9 +342,10 @@ class Smoke:
 
     # -- launch counts ------------------------------------------------------
 
-    def counted(self, fn, expect, path: str):
+    def counted(self, fn, expect, path: str, exact=None):
         """Run ``fn`` with every launch count at 0 and fail unless each
-        kernel in ``expect`` launched; returns fn's result."""
+        kernel in ``expect`` launched, and each kernel in ``exact`` (a
+        dict) launched exactly that often; returns fn's result."""
         for w in self.wrappers.values():
             w.launches = 0
         out = fn()
@@ -346,6 +355,9 @@ class Smoke:
         missing = [k for k in expect if not got.get(k)]
         if missing:
             fail(f"{path}: kernel(s) {missing} never launched: {got}")
+        wrong = {k: n for k, n in (exact or {}).items() if got.get(k, 0) != n}
+        if wrong:
+            fail(f"{path}: launches {got}, expected {wrong}")
         for k, n in got.items():
             self.launches[k] += n
         self.path_launches[path] = got
@@ -407,13 +419,15 @@ class Smoke:
 
     # -- the SpMV paths -----------------------------------------------------
 
-    def spmv_path(self, path, a, fmt, x, expect, check_dtype) -> None:
-        """One SpMV path: counted run, scipy check, recorded run, and the
-        whole product timed with the kernels, with the plain versions and
-        as one cuSPARSE CSR call (the yardstick)."""
+    def spmv_path(self, path, a, fmt, x, expect, check_dtype,
+                  exact=None) -> None:
+        """One SpMV path: counted run (launch counts ``exact`` where
+        given), scipy check, recorded run, and the whole product timed with
+        the kernels, with the plain versions and as one cuSPARSE CSR call
+        (the yardstick)."""
         torch, nt = self.torch, self.nt
         x_d = x.to(self.dev)
-        y = self.counted(lambda: nt.spmv(fmt, x_d), expect, path)
+        y = self.counted(lambda: nt.spmv(fmt, x_d), expect, path, exact)
         ok, nf = nt.ans_check(y, nt.spmv_oracle(a, x), dtype=check_dtype,
                               verbose=True, scale=nt.spmv_abs_oracle(a, x))
         rtol = 1e-5 if check_dtype == np.float32 else 1e-8
@@ -717,11 +731,12 @@ class Smoke:
                 print(f"{k}: library call failed ({e}); library_ms null")
         return ms, plain_ms, lib_ms
 
-    def kernel_table(self):
-        """Per kernel: a line per path and one aggregate row (sums over
-        every path the kernel ran on) for the JSON table."""
+    def kernel_table(self, names=tuple(KERNELS)):
+        """Per kernel of ``names``: a line per path and one aggregate row
+        (sums over every path the kernel ran on) for the JSON table."""
         table = []
-        for k, (route, src, replaces) in KERNELS.items():
+        for k in names:
+            route, src, replaces = KERNELS[k]
             if not self.calls[k]:
                 fail(f"{k}: no recorded call on any path")
             tol_txt = TOLERANCE.get(k, "exact")
@@ -1060,7 +1075,7 @@ def esc_layout_phases(s: Smoke) -> None:
     srt = plan.srt
     want = {}
     for gp, with_other in ((srt.bv_gp, False), (srt.av_gp, True)):
-        n5 = sum(1 for i in gp.ids if i.numel())
+        n5 = k5_launches([gp])
         fb = int(bool(gp.fb_ids.numel()))
         for k, n in (("gather_subset", n5), ("gather", (1 + with_other) * fb),
                      ("scatter_tiles", fb)):
@@ -1160,23 +1175,39 @@ def gather_kernels(plans) -> set:
     """The kernels ``flat_gather`` must launch for these plans: K5 for
     class subsets, K1 and K6 for fallback tiles."""
     need = set()
-    if any(i.numel() for p in plans for i in p.ids):
+    if k5_launches(plans):
         need.add("gather_subset")
     if any(p.fb_ids.numel() for p in plans):
         need |= {"gather", "scatter_tiles"}
     return need
 
 
-def ell_kernels(ell):
-    """The kernels an ELL SpMV must launch: its gather plans', and K1 for
-    the x-shuffle."""
+def k5_launches(plans) -> int:
+    """K5's launches in one ``flat_gather`` per plan: one for each plan
+    with class units, whatever its number of classes."""
+    return sum(1 for p in plans if p.units.numel())
+
+
+def ell_plans(ell) -> list:
+    """The gather plans of an ELL SpMV, one ``flat_gather`` each."""
     plans = [ell.pos_gp]
     plans += [ell.uniq_cols_gp, ell.xfill_gp] if ell.xsh is not None \
         else list(ell.cols_gp)
-    need = gather_kernels(plans)
+    return plans
+
+
+def ell_kernels(ell):
+    """The kernels an ELL SpMV must launch: its gather plans', and K1 for
+    the x-shuffle."""
+    need = gather_kernels(ell_plans(ell))
     if ell.xsh is not None:
         need.add("gather")
     return sorted(need)
+
+
+def ell_k5(ell) -> dict:
+    """The exact K5 launches of an ELL SpMV."""
+    return {"gather_subset": k5_launches(ell_plans(ell))}
 
 
 def spmv_phases(s: Smoke) -> None:
@@ -1207,9 +1238,9 @@ def spmv_phases(s: Smoke) -> None:
     x = x_for(a.shape[1], np.float32)
     ell_x_d = host_timed("ELL x-shuffle to the card", lambda: ell_x.to(s.dev))
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-xshuffle", a, ell_x_d, x,
-                ell_kernels(ell_x), np.float32)
+                ell_kernels(ell_x), np.float32, ell_k5(ell_x))
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-direct", a, ell_d.to(s.dev), x,
-                ell_kernels(ell_d), np.float32)
+                ell_kernels(ell_d), np.float32, ell_k5(ell_d))
     del ell_d
     x_d = x.to(s.dev)
     profile_calls(torch, lambda: nt.spmv(ell_x_d, x_d), "ELL x-shuffle SpMV")
@@ -1219,7 +1250,8 @@ def spmv_phases(s: Smoke) -> None:
     ell64 = dataclasses.replace(
         ell_x_d, vals=tuple(v.double() for v in ell_x_d.vals))
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-xshuffle-f64", a64, ell64,
-                x_for(a.shape[1], np.float64), ell_kernels(ell_x), np.float64)
+                x_for(a.shape[1], np.float64), ell_kernels(ell_x), np.float64,
+                ell_k5(ell_x))
     del ell_x, ell_x_d, ell64, a64, a
 
     # banded: 5-point stencil as DIA and as row-ordered ELL
@@ -1231,7 +1263,7 @@ def spmv_phases(s: Smoke) -> None:
     s.spmv_path("stencil-dia", a, dia.to(s.dev), x, ["spmv_dia"], np.float32)
     ell = host_timed("ELL sigma 0", lambda: nt.ELL.from_csr(a, sigma=0))
     s.spmv_path("stencil-ell-sigma0", a, ell.to(s.dev), x, ell_kernels(ell),
-                np.float32)
+                np.float32, ell_k5(ell))
     del ell
     a64 = a.with_values(a.val.double())
     s.spmv_path("stencil-dia-f64", a64,
@@ -1309,12 +1341,14 @@ def precision_check(s: Smoke, bsr_d) -> None:
         fail("BSR products lost full float32 precision under TF32")
 
 
-def bsr_path(s: Smoke, path: str, a, plan_d, fn, expect) -> None:
-    """One block SpGEMM path: the counted run of ``fn`` (C as CSR), the
-    scipy check, a recorded run, and timings with the kernels, with the
-    plain versions and as one cuSPARSE CSR SpGEMM."""
+def bsr_path(s: Smoke, path: str, a, plan_d, fn, expect,
+             exact=None) -> None:
+    """One block SpGEMM path: the counted run of ``fn`` (C as CSR; launch
+    counts ``exact`` where given), the scipy check, a recorded run, and
+    timings with the kernels, with the plain versions and as one cuSPARSE
+    CSR SpGEMM."""
     torch, nt = s.torch, s.nt
-    c = s.counted(fn, expect, path)
+    c = s.counted(fn, expect, path, exact)
     ok = nt.check_spgemm_answer(c, nt.spgemm_oracle(a, a), verbose=True,
                                 abs_ref=nt.spgemm_abs_oracle(a, a))
     vals = c.val[: c.nnz]
@@ -1387,9 +1421,10 @@ def bsr_spgemm_phases(s: Smoke) -> None:
                       val=blocks.reshape(-1).index_select(0, plan_d.c_slot),
                       shape=plan_d.shape, nnz=plan_d.c_nnz)
 
-    expect = ["spgemm_bsr_blocks", *sorted(gather_kernels(
-        [plan.a_fill_gp, plan.b_fill_gp]))]
-    bsr_path(s, "fem-bsr-rerun", a2, plan_d, rerun, expect)
+    fills = [plan.a_fill_gp, plan.b_fill_gp]
+    bsr_path(s, "fem-bsr-rerun", a2, plan_d, rerun,
+             ["spgemm_bsr_blocks", *sorted(gather_kernels(fills))],
+             {"gather_subset": k5_launches(fills)})
     bsr_precision_check(s, plan_d, tile_products)
     profile_calls(torch, lambda: nt.spgemm_bsr(a_d, a_d, plan_d),
                   "FEM block SpGEMM f32")
@@ -1614,6 +1649,122 @@ def tile_copy_phase(s: Smoke) -> None:
               f"queued behind a sleep; bound {bound:.4f} ms", flush=True)
 
 
+def bank_subset_phase(s: Smoke) -> None:
+    """K11 build_bank and K5 gather_subset.  Each branch held against its
+    plain version with ``torch.equal`` in f32 and f64: K11's vector branch
+    on a 16-copy bank whose table runs to the bank's end (the copies'
+    tails wrap into the BIAS zeros) and on one copy (the flat table), its
+    scalar branch (``b8_idx`` one element off 16-byte alignment), and a
+    table that ends inside a vector; K5's vector branch with an ``other``
+    shorter than the slots and without one, and its scalar branch (an
+    ``out`` view one element off, a unit of 1001 slots).  Then, where the
+    paths have run, K11 on the v2 path's call and K5 on the largest ELL
+    call and on the FEM value re-run's calls, by CUDA events, by the
+    profiler's device time and queued behind a device sleep, beside their
+    bounds and library calls."""
+    torch = s.torch
+    from nsparse_tpu_torch.ops.kernels import gather_tiles as gt
+    from nsparse_tpu_torch.ops.kernels import piecewise as pw
+
+    def check(what, got, want):
+        ok = torch.equal(got, want)
+        print(f"{what}: equal to its plain version: "
+              f"{'pass' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{what} differs from its plain version")
+
+    rng = np.random.default_rng(SEED)
+    rows, n_b = 64, 5000
+    n = rows * 128
+    for dtype in (torch.float32, torch.float64):
+        b_val = torch.randn(n_b, dtype=dtype, device=s.dev)
+        for what, length, copies, shift in (
+                ("vector branch, 16 copies, table to the bank's end",
+                 n - pw.BIAS, pw.BANK_K, 0),
+                ("vector branch, 1 copy (the flat table)", n - pw.BIAS, 1, 0),
+                ("scalar branch, b8_idx one element off", n - pw.BIAS,
+                 pw.BANK_K, 1),
+                ("a table ending inside a vector", n - pw.BIAS - 3,
+                 pw.BANK_K, 0)):
+            # -1 and indices past b_val read 0
+            b8 = torch.from_numpy(rng.integers(
+                -1, n_b + 8, length + shift).astype(np.int32)).to(
+                    s.dev)[shift:]
+            check(f"K11 {what}, {dtype}",
+                  pw.build_bank(b8, rows, b_val, copies),
+                  pw.build_bank_plain(b8, rows, b_val, copies))
+
+    n_units, n_src = 12, 100_000
+    for dtype in (torch.float32, torch.float64):
+        src = torch.randn(n_src, dtype=dtype, device=s.dev)
+        # the last unit is listed: `other` ends inside it
+        ids = torch.from_numpy(np.append(
+            rng.permutation(n_units - 1)[:6], n_units - 1).astype(
+                np.int32)).to(s.dev)
+        for what, unit, shift, with_other in (
+                ("vector branch, other shorter than the slots", 8192, 0, True),
+                ("vector branch, no other", 8192, 0, False),
+                ("scalar branch, out one element off", 8192, 1, True),
+                ("scalar branch, a unit of 1001 slots", 1001, 0, True)):
+            slots = unit * n_units
+            idx = torch.from_numpy(rng.integers(
+                -3, n_src + 3, slots).astype(np.int32)).to(s.dev)
+            other = torch.randn(slots - unit // 2 - 1, dtype=dtype,
+                                device=s.dev) if with_other else None
+            out = torch.randn(slots + shift, dtype=dtype, device=s.dev)
+            got, want = out.clone()[shift:], out.clone()[shift:]
+            gt.gather_subset(src, idx, ids, unit, got, other)
+            gt.gather_subset_plain(src, idx, ids, unit, want, other)
+            check(f"K5 {what}, {dtype}", got, want)
+
+    def measure(k, label, calls, kernel, lib_name):
+        """One pass over ``calls`` of kernel ``k``: CUDA events, the
+        profiler's device time (per-launch means, summed), queued behind a
+        sleep; its bound and its library call by events."""
+        arglists = [s.fresh(k, a) for a in calls]
+        w = s.wrappers[k]
+
+        def run():
+            for a in arglists:
+                w(*a)
+
+        ev_ms = s.time_cuda(run, trials=TRIALS)
+        got = [profiled_device_ms(torch, lambda a=a: w(*a), kernel)
+               for a in arglists]
+        dev_ms = None if any(m is None for m, _ in got) \
+            else sum(m for m, _ in got)
+        queued = queued_device_ms(torch, run)
+        bound = sum(s.bound_ms(k, a, s.run(k, s.plain[k], a))[0]
+                    for a in calls)
+        lib = [s.library_call(k, a) for a in calls]
+
+        def run_lib():
+            for f in lib:
+                f()
+
+        lib_ms = s.time_cuda(run_lib, trials=TRIALS)
+        print(f"{label} [{s.name}, {s.card}]: {len(calls)} call(s), "
+              f"{ev_ms:.4f} ms by CUDA events, {fmt_ms(dev_ms)} ms device "
+              f"time by torch.profiler (launches recorded per call, of 10: "
+              f"{[m for _, m in got]}), {fmt_ms(queued)} ms queued behind a "
+              f"sleep; bound {bound:.4f} ms; {lib_name} {lib_ms:.4f} ms by "
+              f"CUDA events", flush=True)
+
+    calls = [a for p, a in s.calls["build_bank"] if p == "spgemm"]
+    if calls:
+        measure("build_bank", "K11 on spgemm", calls, "build_bank_kernel",
+                "b_val[idx]")
+    ell = [(p, a) for p, a in s.calls["gather_subset"] if "-ell-" in p]
+    if ell:
+        path, args = max(ell, key=lambda c: c[1][2].numel() * c[1][3])
+        measure("gather_subset", f"K5 on {path}, its largest ELL call",
+                [args], "gather_subset", "src[idx]")
+    calls = [a for p, a in s.calls["gather_subset"] if p == "fem-bsr-rerun"]
+    if calls:
+        measure("gather_subset", "K5 on fem-bsr-rerun", calls,
+                "gather_subset", "src[idx]")
+
+
 def host_us(torch, fn, reps: int = LAUNCH_REPS) -> float:
     """Host µs per call of ``fn`` over ``reps`` back-to-back calls, the
     host clock around them and a closing ``torch.cuda.synchronize()``
@@ -1630,13 +1781,14 @@ def host_us(torch, fn, reps: int = LAUNCH_REPS) -> float:
 def launch_cost_phase(s: Smoke) -> None:
     """Where the host's time per launch goes: each step of the ctypes
     launch path alone, the whole wrappers, and the PyTorch calls that
-    compute the same functions, at 1 tile and at the main path's own
-    calls (when the paths have run).  Each step is timed over LAUNCH_REPS
-    back-to-back calls, in LAUNCH_ROUNDS rounds that take every step in
-    turn; the median round is printed, with the fastest and slowest."""
+    compute the same functions, at 1 tile (K5: 1 unit; K11: one 64-row
+    copy) and at the main path's own calls (when the paths have run).
+    Each step is timed over LAUNCH_REPS back-to-back calls, in
+    LAUNCH_ROUNDS rounds that take every step in turn; the median round is
+    printed, with the fastest and slowest."""
     torch, cl = s.torch, s.cuda_lib
     from nsparse_tpu_torch.buildlib import BUILD_DIR
-    from nsparse_tpu_torch.ops.kernels import gather_tiles, shuffle
+    from nsparse_tpu_torch.ops.kernels import gather_tiles, piecewise, shuffle
 
     src = torch.randn(2 * 1024, device=s.dev)
     ids = torch.ones(1, dtype=torch.int32, device=s.dev)
@@ -1658,6 +1810,15 @@ def launch_cost_phase(s: Smoke) -> None:
             pass
 
     tiles, il, idx_l = src.view(-1, 1024), ids.long(), idx.long()
+    # one unit of K5 (8,192 slots) and a one-copy K11 table of as many
+    # slots (64 rows: the BIAS zeros and 6,144 table slots)
+    unit_args = (torch.randn(8192, device=s.dev),
+                 torch.arange(8192, dtype=torch.int32, device=s.dev),
+                 torch.zeros(1, dtype=torch.int32, device=s.dev), 8192,
+                 torch.empty(8192, device=s.dev))
+    bank_args = (torch.arange(64 * 128 - piecewise.BIAS, dtype=torch.int32,
+                              device=s.dev), 64,
+                 torch.randn(8192, device=s.dev), 1)
     steps = {
         "old path: cuda_lib.entry": lambda: cl.entry("nsp_gather_tiles8",
                                                      torch.float32),
@@ -1689,6 +1850,13 @@ def launch_cost_phase(s: Smoke) -> None:
             lambda: gather_tiles.gather_tiles8(src, ids),
         "K6 scatter_tiles (new path), 1 tile":
             lambda: gather_tiles.scatter_tiles(src, ids, out, 1024),
+        "K11 build_bank, one 64-row copy":
+            lambda: piecewise.build_bank(*bank_args),
+        "b_val[idx], one 64-row copy": s.library_call("build_bank",
+                                                      bank_args),
+        "K5 gather_subset, 1 unit":
+            lambda: gather_tiles.gather_subset(*unit_args),
+        "src[idx], 1 unit": s.library_call("gather_subset", unit_args),
         "K1 gather (old path, the control), 1 tile":
             lambda: shuffle.gather(src, idx),
         "index_select, 1 tile": lambda: tiles.index_select(0, il),
@@ -1696,11 +1864,13 @@ def launch_cost_phase(s: Smoke) -> None:
             lambda: tiles.index_copy_(0, il, out.view(1, 1024)),
         "x[idx], 1 tile": lambda: src[idx_l],
     }
-    # the main path's own calls: K12 on R-MAT-14's fallback pool, K6 and
-    # K1 on the stencil ELL, each beside its library call
+    # the main path's own calls: K12 and K11 on R-MAT-14's v2 path, K6,
+    # K5 and K1 on the stencil ELL, each beside its library call
     for k, path, lib in (("gather_tiles8", "spgemm", "index_select"),
+                         ("build_bank", "spgemm", "b_val[idx]"),
                          ("scatter_tiles", "stencil-ell-sigma0",
                           "index_copy_"),
+                         ("gather_subset", "stencil-ell-sigma0", "src[idx]"),
                          ("gather", "stencil-ell-sigma0", "x[idx]")):
         calls = [a for p, a in s.calls[k] if p == path]
         if calls:
@@ -1746,7 +1916,7 @@ def main() -> None:
 
     for phase in (spgemm_phase, esc_layout_phases, kfold_phase, spmv_phases,
                   bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,
-                  launch_cost_phase):
+                  bank_subset_phase, launch_cost_phase):
         t0 = time.perf_counter()
         phase(s)
         print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "

@@ -57,10 +57,6 @@ __global__ void scatter_tiles_vec_kernel(uint4* __restrict__ dst,
   }
 }
 
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % sizeof(uint4) == 0;
-}
-
 template <typename T>
 int launch_scatter_tiles(void* dst, const void* ids, int64_t n_ids,
                          const void* vals, int64_t tile, void* stream) {
@@ -68,7 +64,8 @@ int launch_scatter_tiles(void* dst, const void* ids, int64_t n_ids,
     const auto grid = static_cast<unsigned int>(n_ids);
     const auto s = nsp::as_stream(stream);
     const int64_t bytes = tile * static_cast<int64_t>(sizeof(T));
-    if (bytes % sizeof(uint4) == 0 && aligned16(dst) && aligned16(vals)) {
+    if (bytes % sizeof(uint4) == 0 && nsp::aligned16(dst) &&
+        nsp::aligned16(vals)) {
       const int64_t tile_vecs = bytes / sizeof(uint4);
       // kVecPer vectors a thread, whole warps, at most kMaxVecThreads
       int64_t threads = (tile_vecs + kVecPer - 1) / kVecPer;

@@ -1,4 +1,5 @@
-"""Planned flat gather: class subsets through K5, fallback tiles via K6.
+"""Planned flat gather: class subsets through one K5 launch, fallback
+tiles via K1 and K6.
 
 Counterpart of ``nsparse_tpu/ops/kernels/flat_gather.py``.  The host
 planner routes each (8, 128) tile of a fixed index array exactly as the
@@ -13,12 +14,12 @@ JAX planner does (same ``idx2d``, ``ids``, ``bases``, ``fb_ids`` and
   and patched in with K6.
 
 On the TPU the classes pick the roll-scan kernel's cost; on Hopper every
-class is the same gather (K5), so the classes only matter for what a
-later kernel may stage in shared memory.  The class ladder and the
-fallback route are kept for parity with the JAX plans: K5 over every
-unit of ``idx2d`` computes the same output in one launch, which is the
-planned replacement (ROADMAP).  f64 moves natively (the JAX
-two-plane route exists because a TPU custom call cannot carry f64).
+class is the same gather, so ``flat_gather`` launches K5 once over the
+units of all classes (``FlatGatherPlan.units``, WIN_UNIT slots each, in
+class order), where the JAX package launches one kernel per class.  The
+class ladder and the fallback route are kept for parity with the JAX
+plans.  f64 moves natively (the JAX two-plane route exists because a TPU
+custom call cannot carry f64).
 """
 
 from __future__ import annotations
@@ -66,6 +67,9 @@ class FlatGatherPlan:
       fb_ids: (8, 128) tiles that no class covers.
       fb_idx: (len(fb_ids) * 1024,) int32 indices of those tiles, in
         order, and fb_pos their flat slot positions (both derived).
+      units: int32 ids of every class unit in WIN_UNIT-slot units, classes
+        in order (band supertile i is units 2i and 2i + 1): the list
+        that one K5 launch gathers (derived).
       classes: (kind, param) per subset.
       n: true index count.
     """
@@ -77,6 +81,7 @@ class FlatGatherPlan:
     fb_ids: torch.Tensor
     fb_idx: torch.Tensor
     fb_pos: torch.Tensor
+    units: torch.Tensor
     classes: Tuple[Tuple[str, int], ...]
     n: int
 
@@ -90,11 +95,14 @@ class FlatGatherPlan:
         n_slots = idx2d.size
         if n_slots % SUPER or n > n_slots:
             raise ValueError("idx2d must be whole supertiles covering n")
+        units = [np.zeros(0, np.int64)]  # in WIN_UNIT units, class order
         for (kind, _), i in zip(classes, ids):
-            unit = SUPER if kind == "band" else WIN_UNIT
-            if np.size(i) and not 0 <= np.min(i) <= np.max(i) < \
-                    n_slots // unit:
+            per = SUPER // WIN_UNIT if kind == "band" else 1
+            i = np.asarray(i, np.int64).reshape(-1)
+            if i.size and not 0 <= i.min() <= i.max() < \
+                    n_slots // (per * WIN_UNIT):
                 raise ValueError(f"{kind} unit id outside the index array")
+            units.append((i[:, None] * per + np.arange(per)).reshape(-1))
         if fb_ids.size and not 0 <= fb_ids.min() <= fb_ids.max() < \
                 n_slots // TILE:
             raise ValueError("fallback tile id outside the index array")
@@ -107,6 +115,7 @@ class FlatGatherPlan:
             fb_ids=int32_tensor(fb_ids),
             fb_idx=int32_tensor(idx2d.reshape(-1)[pos]),
             fb_pos=int32_tensor(pos),
+            units=int32_tensor(np.concatenate(units)),
             classes=tuple((str(k), int(p)) for k, p in classes),
             n=int(n),
         )
@@ -205,16 +214,15 @@ def flat_gather(plan: FlatGatherPlan, src: torch.Tensor,
     """``out[i] = src[idx[i]]`` (0 for sentinel indices), times
     ``other[i]`` when given; returns flat (n,).
 
-    Each class subset is one K5 launch; the fallback tiles are gathered
-    with K1 (and multiplied by ``other`` there) and patched in by K6.
+    The units of every class subset are one K5 launch; the fallback
+    tiles are gathered with K1 (and multiplied by ``other`` there) and
+    patched in by K6.
     """
     t = int(plan.idx2d.shape[0])
-    idx = plan.idx2d.reshape(-1)
     out = torch.zeros(t * LANES, dtype=src.dtype, device=src.device)
-    for (kind, _), ids in zip(plan.classes, plan.ids):
-        if ids.numel():
-            gather_subset(src, idx, ids, SUPER if kind == "band" else WIN_UNIT,
-                          out, other)
+    if plan.units.numel():
+        gather_subset(src, plan.idx2d.reshape(-1), plan.units, WIN_UNIT, out,
+                      other)
     if plan.fb_ids.numel():
         vals = gather(src, plan.fb_idx)
         if other is not None:

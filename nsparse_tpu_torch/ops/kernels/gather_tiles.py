@@ -7,9 +7,10 @@ Counterpart of ``nsparse_tpu/ops/kernels/gather_pallas.py``'s
 (K10).  The TPU kernels
 replace a gather the TPU lacks with roll-scans over a window or band;
 Hopper gathers in hardware, so K5 reads each slot's source directly and
-one kernel serves every class (the class's unit size tells it how many
-slots a listed id covers), and K10 reads ``win[t, idx]`` directly.  K5
-and K6 update their output in place, as the JAX outputs are aliased.
+one launch serves every class of a flat gather (it takes a list of
+equal units: ``flat_gather`` lists those of all its classes), and K10
+reads ``win[t, idx]`` directly.  K5 and K6 update their output in place,
+as the JAX outputs are aliased.
 """
 
 from __future__ import annotations
@@ -62,20 +63,16 @@ def gather_subset(src: torch.Tensor, idx: torch.Tensor, ids: torch.Tensor,
     if idx.numel() != out.numel() or out.numel() % unit:
         raise ValueError("gather_subset: idx and out must be whole units of "
                          "one length")
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return gather_subset_plain(src, idx, ids, unit, out, other)
-    tensors = (src, idx, ids, out) + ((other,) if other is not None else ())
-    cuda_lib.require_cuda("gather_subset", *tensors)
+    # a null ``other`` reaches C as the pointer 0
+    oth, n_oth = (0, 0) if other is None else (other, other.numel())
     if ids.numel():
-        fn = cuda_lib.entry("nsp_gather_subset", src.dtype)
-        with torch.cuda.device(src.device):
-            rc = fn(cuda_lib.ptr(src), src.numel(), cuda_lib.ptr(idx),
-                    cuda_lib.ptr(ids), ids.numel(), unit,
-                    cuda_lib.ptr(other) if other is not None else None,
-                    other.numel() if other is not None else 0,
-                    cuda_lib.ptr(out), cuda_lib.stream(src))
-        cuda_lib.check(rc, "gather_subset")
+        cuda_lib.launch("gather_subset", "nsp_gather_subset", src, src.numel(),
+                        idx, ids, ids.numel(), unit, oth, n_oth, out)
         gather_subset.launches += 1
+    else:
+        cuda_lib.validate("gather_subset", src, idx, ids, oth, out)
     return out
 
 

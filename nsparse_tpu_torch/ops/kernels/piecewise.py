@@ -220,18 +220,12 @@ def build_bank(b8_idx: torch.Tensor, bank_rows: int,
     CPU tensors take :func:`build_bank_plain`; CUDA tensors launch the
     kernel (``csrc/build_bank.cu``) or raise.
     """
-    if b_val.device.type == "cpu":
+    if b_val.is_cpu:
         return build_bank_plain(b8_idx, bank_rows, b_val, copies)
     _check_bank_args(b8_idx, bank_rows, copies)
-    cuda_lib.require_cuda("build_bank", b_val, b8_idx)
-    out = torch.empty(copies * bank_rows, LANES, dtype=b_val.dtype,
-                      device=b_val.device)
-    fn = cuda_lib.entry("nsp_build_bank", b_val.dtype)
-    with torch.cuda.device(b_val.device):
-        rc = fn(cuda_lib.ptr(b_val), b_val.numel(), cuda_lib.ptr(b8_idx),
-                b8_idx.numel(), bank_rows, BIAS, copies, cuda_lib.ptr(out),
-                cuda_lib.stream(b_val))
-    cuda_lib.check(rc, "build_bank")
+    out = b_val.new_empty(copies * bank_rows, LANES)
+    cuda_lib.launch("build_bank", "nsp_build_bank", b_val, b_val.numel(),
+                    b8_idx, b8_idx.numel(), bank_rows, BIAS, copies, out)
     build_bank.launches += 1
     return out
 

@@ -16,9 +16,9 @@ N_WIN_CLASSES = 6     # window widths WIN_MIN << j, j < N_WIN_CLASSES
 # Parity values: the JAX CPU config's, so the port's piece tables and its
 # choice of the v2 numeric form equal the JAX package's.  BANK_K copies of
 # the 8-aligned B table, each rolled 8 slots further; a bank of more than
-# BANK_ROWS_MAX rows takes the unaligned piece mode (not ported); each
-# live 1024-slot subtile of the piecewise arena joins the first class whose
-# piece budget covers its piece count.
+# BANK_ROWS_MAX rows takes the unaligned piece mode (K2's flat mode, on a
+# one-copy K11 table); each live 1024-slot subtile of the piecewise arena
+# joins the first class whose piece budget covers its piece count.
 BANK_K = 16
 BANK_ROWS_MAX = 1600
 PW_J_CLASSES = (2, 4, 8, 16, 32, 64, 128)

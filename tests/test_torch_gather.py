@@ -24,8 +24,8 @@ from nsparse_tpu.ops.kernels.gather_pallas import (
 )
 
 import nsparse_tpu_torch as nt
+from nsparse_tpu_torch.ops.kernels import cuda_lib, gather_tiles
 from nsparse_tpu_torch.ops.kernels import flat_gather as tfg
-from nsparse_tpu_torch.ops.kernels import gather_tiles
 
 DTYPES = [np.float32, np.float64]
 
@@ -167,6 +167,124 @@ def test_flat_gather_every_class_matches_jax(dtype):
         got = tfg.flat_gather(tp, torch.from_numpy(src),
                               None if oth is None else torch.from_numpy(oth))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _class_slots(plan):
+    """The flat slots of every class unit of a (JAX or port) plan, the
+    classes in order (band: SUPER-slot supertiles, window: WIN_UNIT)."""
+    slots = [np.zeros(0, np.int64)]
+    for (kind, _), ids in zip(plan.classes, plan.ids):
+        unit = tfg.SUPER if kind == "band" else tfg.WIN_UNIT
+        ids = np.asarray(ids, np.int64)
+        slots.append((ids[:, None] * unit + np.arange(unit)).reshape(-1))
+    return np.concatenate(slots)
+
+
+def _unit_slots(plan):
+    units = plan.units.numpy().astype(np.int64)
+    return (units[:, None] * tfg.WIN_UNIT + np.arange(tfg.WIN_UNIT)).reshape(-1)
+
+
+@pytest.mark.parametrize("classes", [
+    ("band1", "band16", "band128", "win128", "win1024", "fallback",
+     "sentinel"),
+    ("win1024", "band128", "sentinel", "win128", "band1"),
+    ("fallback",),
+], ids=["every-class", "classes-out-of-order", "fallback-only"])
+def test_flat_gather_units_cover_the_class_units(classes):
+    """The merged unit list that one K5 launch gathers covers exactly the
+    slots of the per-class units, in class order (a band supertile is two
+    WIN_UNIT units); a plan without class units has an empty list."""
+    rng = np.random.default_rng(len(classes) + 20)
+    plan = tfg.build_flat_gather_plan(_indices(rng, 200000, classes))
+    assert plan.units.dtype == torch.int32
+    np.testing.assert_array_equal(_unit_slots(plan), _class_slots(plan))
+    assert (plan.units.numel() == 0) == (classes == ("fallback",))
+
+
+def test_flat_gather_units_of_a_jax_plan():
+    """``from_numpy`` on a JAX plan's arrays derives the same unit list
+    from the JAX per-class ids."""
+    rng = np.random.default_rng(21)
+    idx = _indices(rng, 200000, ("band16", "win128", "fallback", "band1",
+                                 "win1024"))
+    j = jfg.build_flat_gather_plan(idx)
+    got = tfg.FlatGatherPlan.from_numpy(
+        np.asarray(j.idx2d), [np.asarray(i) for i in j.ids],
+        [np.asarray(b) for b in j.bases], np.asarray(j.fb_ids), j.classes,
+        j.n)
+    np.testing.assert_array_equal(_unit_slots(got), _class_slots(j))
+    np.testing.assert_array_equal(
+        got.units.numpy(), tfg.build_flat_gather_plan(idx).units.numpy())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_other", [False, True])
+def test_flat_gather_one_subset_call_matches_jax(dtype, with_other,
+                                                 monkeypatch):
+    """The port's flat gather, through one ``gather_subset`` call over
+    the merged units, equals the JAX flat gather whose Pallas kernels run
+    once per class in interpret mode, exactly."""
+    monkeypatch.setattr(jfg, "FORCE_PALLAS", True)
+    rng = np.random.default_rng(23)
+    s = 50000
+    idx = _indices(rng, s, ("band1", "sentinel", "win128", "fallback"))
+    idx = idx[: idx.size - 500]
+    src = rng.standard_normal(s).astype(dtype)
+    # ``other`` covers the n slots, not the padded supertiles
+    other = rng.standard_normal(idx.size).astype(dtype) if with_other \
+        else None
+    jp = jfg.build_flat_gather_plan(idx)
+    assert sum(1 for i in jp.ids if np.size(i)) > 1, jp.class_fracs
+    want = np.asarray(jfg.flat_gather(
+        jp, jnp.asarray(src), None if other is None else jnp.asarray(other)))
+    tp = tfg.build_flat_gather_plan(idx)
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return gather_tiles.gather_subset(*args)
+
+    monkeypatch.setattr(tfg, "gather_subset", spy)
+    got = tfg.flat_gather(tp, torch.from_numpy(src),
+                          None if other is None else torch.from_numpy(other))
+    np.testing.assert_array_equal(got.numpy(), want)
+    (_, _, ids, unit, _, oth), = seen
+    assert ids is tp.units and unit == tfg.WIN_UNIT
+    assert (oth is None) == (other is None)
+
+
+@pytest.mark.parametrize("classes, k5, k6", [
+    (("band16", "win128", "band1", "win1024"), 1, 0),
+    (("band16", "fallback", "win128"), 1, 1),
+    (("fallback",), 0, 1),
+], ids=["four-classes", "classes-and-fallback", "fallback-only"])
+def test_flat_gather_launches_k5_once_per_plan(monkeypatch, classes, k5, k6):
+    """Off the CPU (``meta`` stands in for the card, ``launch`` stubbed),
+    ``flat_gather`` launches K5 once for a plan with class units, however
+    many classes it has, and not at all for a plan with none; the
+    fallback tiles keep their K1 gathers and their K6 launch."""
+    launched = []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: launched.append(name))
+    k1 = []
+
+    def gather(x, idx):
+        k1.append(idx)
+        return torch.zeros(idx.numel(), dtype=x.dtype, device=x.device)
+
+    monkeypatch.setattr(tfg, "gather", gather)
+    rng = np.random.default_rng(25)
+    plan = tfg.build_flat_gather_plan(_indices(rng, 200000, classes))
+    before = gather_tiles.gather_subset.launches
+    src = torch.zeros(200000, device="meta")
+    out = tfg.flat_gather(plan.to("meta"), src,
+                          torch.zeros(plan.n, device="meta"))
+    assert out.shape == (plan.n,) and out.device.type == "meta"
+    assert launched.count("nsp_gather_subset") == k5
+    assert launched.count("nsp_scatter_tiles") == k6
+    assert len(launched) == k5 + k6 and len(k1) == 2 * k6
+    assert gather_tiles.gather_subset.launches - before == k5
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -235,6 +235,29 @@ def test_build_bank_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("copies", [piecewise.BANK_K, 1])
+def test_build_bank_to_the_bank_end_matches_jax(dtype, copies):
+    """A table that runs to the last slot of a 64-row bank: each copy's
+    tail wraps into the BIAS zeros, as in the JAX build_bank; one copy is
+    the JAX bank's first (the flat table), bit for bit."""
+    rows = 64
+    n = rows * 128
+    rng = np.random.default_rng(copies)
+    b = _vals(7000, dtype, 14)
+    b8_idx = rng.integers(-1, 7000, n - piecewise.BIAS).astype(np.int32)
+    want = np.asarray(j_build_bank(build_flat_gather_plan(b8_idx), rows,
+                                   jnp.asarray(b)))[: copies * rows]
+    got = piecewise.build_bank(torch.from_numpy(b8_idx), rows,
+                               torch.from_numpy(b), copies)
+    assert got.shape == (copies * rows, 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    flat = got.numpy().reshape(copies, n)
+    for k in range(copies):  # the last 8k slots of copy k: the BIAS zeros
+        assert not flat[k, n - 8 * k:].any()
+        assert flat[k, n - 8 * k - 1] == flat[0, n - 1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_gather_tiles8_matches_jax(dtype):
     """K12's plain version against the JAX gather_tiles8 in interpret
     mode, with repeated and zero-tile sources."""

@@ -1,5 +1,6 @@
-"""The lean launch path (``cuda_lib.launch``) of K6 scatter_tiles and K12
-gather_tiles8, without a card and without building the kernel library.
+"""The lean launch path (``cuda_lib.launch``) of K6 scatter_tiles, K12
+gather_tiles8, K11 build_bank and K5 gather_subset, without a card and
+without building the kernel library.
 
 The library is never built or loaded here: every test that could reach it
 stubs ``cuda_lib.KERNELS`` (and clears the resolved-entry cache), so a
@@ -18,7 +19,7 @@ import torch
 
 from nsparse_tpu.ops.kernels.gather_pallas import scatter_tiles as j_scatter
 
-from nsparse_tpu_torch.ops.kernels import cuda_lib, gather_tiles
+from nsparse_tpu_torch.ops.kernels import cuda_lib, gather_tiles, piecewise
 
 
 class _Library:
@@ -146,20 +147,43 @@ def test_launch_raises_on_a_cuda_error_and_restores_the_device(monkeypatch):
     assert got == [1, 0] and len(lib.calls) == 1
 
 
-@pytest.mark.parametrize("call, c_name", [
+def _k5(d, other=True, n_ids=2):
+    """K5 over ``n_ids`` of four 1024-slot units, with or without
+    ``other``."""
+    i32 = dict(dtype=torch.int32, device=d)
+    return gather_tiles.gather_subset(
+        torch.zeros(500, device=d), torch.zeros(4096, **i32),
+        torch.zeros(n_ids, **i32), 1024, torch.zeros(4096, device=d),
+        torch.zeros(3000, device=d) if other else None)
+
+
+def _k11(d):
+    return piecewise.build_bank(torch.zeros(100, dtype=torch.int32, device=d),
+                                64, torch.zeros(300, device=d))
+
+
+# the argument of the null ``other`` pointer: the int 0, in that slot only
+K5_NULL_OTHER = 6
+
+
+@pytest.mark.parametrize("call, c_name, null_slot", [
     (lambda d: gather_tiles.scatter_tiles(
         torch.zeros(4096, device=d), torch.zeros(2, dtype=torch.int32,
                                                  device=d),
-        torch.zeros(2048, device=d), 1024), "nsp_scatter_tiles"),
+        torch.zeros(2048, device=d), 1024), "nsp_scatter_tiles", None),
     (lambda d: gather_tiles.gather_tiles8(
         torch.zeros(4096, device=d), torch.zeros(3, dtype=torch.int32,
                                                  device=d)),
-     "nsp_gather_tiles8"),
-], ids=["K6", "K12"])
-def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name):
-    """K6's and K12's wrappers hand ``launch`` one argument per C
+     "nsp_gather_tiles8", None),
+    (_k5, "nsp_gather_subset", None),
+    (lambda d: _k5(d, other=False), "nsp_gather_subset", K5_NULL_OTHER),
+    (_k11, "nsp_build_bank", None),
+], ids=["K6", "K12", "K5", "K5-null-other", "K11"])
+def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name, null_slot):
+    """The wrappers on the lean path hand ``launch`` one argument per C
     parameter before the stream: a tensor for each pointer, an int for
-    each size."""
+    each size; K5's absent ``other`` is the int 0 (a null pointer), and
+    no other pointer slot takes an int."""
     seen = []
     monkeypatch.setattr(cuda_lib, "launch",
                         lambda what, name, *args: seen.append((name, args)))
@@ -168,9 +192,24 @@ def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name):
     assert name == c_name
     sig = cuda_lib._SIGNATURES[name][:-1]
     assert len(args) == len(sig)
-    for a, kind in zip(args, sig):
+    for i, (a, kind) in enumerate(zip(args, sig)):
+        if i == null_slot:
+            assert kind is cuda_lib._P and type(a) is int and a == 0
+            continue
         assert isinstance(a, torch.Tensor) == (kind is cuda_lib._P)
         assert isinstance(a, (torch.Tensor, int))
+
+
+def test_k5_passes_its_sizes(monkeypatch):
+    """K5's sizes: the source's length, the unit count and size, and
+    ``other``'s length (0 without one)."""
+    seen = []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: seen.append(args))
+    _k5("meta", n_ids=3)
+    _k5("meta", other=False, n_ids=3)
+    for args, n_other in zip(seen, (3000, 0)):
+        assert [args[i] for i in (1, 4, 5, 7)] == [500, 3, 1024, n_other]
 
 
 @pytest.mark.parametrize("call", [
@@ -185,16 +224,25 @@ def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name):
     lambda: gather_tiles.gather_tiles8(
         torch.zeros(2048, device="meta"),
         torch.zeros(0, dtype=torch.int32, device="meta")),
-], ids=["K6", "K6-empty", "K12-empty"])
+    lambda: _k5("meta"),
+    lambda: _k5("meta", n_ids=0),
+    lambda: _k5("meta", other=False),
+    lambda: _k11("meta"),
+], ids=["K6", "K6-empty", "K12-empty", "K5", "K5-empty", "K5-null-other",
+        "K11"])
 def test_wrappers_refuse_a_non_cuda_device(no_library, call):
-    """Off the CPU, K6 and K12 launch on a card or raise, also when there
-    is nothing to move; no launch is counted."""
-    before = (gather_tiles.scatter_tiles.launches,
-              gather_tiles.gather_tiles8.launches)
+    """Off the CPU, K6, K12, K5 and K11 launch on a card or raise, also
+    when there is nothing to move; no launch is counted."""
+    def counts():
+        return (gather_tiles.scatter_tiles.launches,
+                gather_tiles.gather_tiles8.launches,
+                gather_tiles.gather_subset.launches,
+                piecewise.build_bank.launches)
+
+    before = counts()
     with pytest.raises(ValueError, match="must be on one CUDA device"):
         call()
-    assert (gather_tiles.scatter_tiles.launches,
-            gather_tiles.gather_tiles8.launches) == before
+    assert counts() == before
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

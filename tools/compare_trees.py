@@ -1,0 +1,63 @@
+#!/usr/bin/env python3
+"""Compare two trees of the port on one card, kernel by kernel.
+
+    python3 tools/compare_trees.py DIR [KERNEL ...]
+
+DIR is the root of a checkout of the repository (an unpacked ``git
+archive`` of another commit, or ``.``).  The script imports DIR's
+``nsparse_tpu_torch`` and DIR's own ``chip_smoke.py``, runs that script's
+path phases (SpGEMM window, the other ESC layouts, SpMV, block SpGEMM),
+which print their path times and record each kernel's calls, and then,
+from this tree's ``chip_smoke.py``: the K11/K5 phase (device time by the
+profiler and queued behind a sleep, on the calls DIR's paths made), the
+launch-cost phase, and the kernel table's rows of KERNEL (default:
+build_bank gather_subset).  Run it once per tree in one call of the
+card, in turns (parent, change, change, parent), to compare them.
+"""
+
+import importlib.util
+import json
+import os
+import sys
+import time
+
+
+def load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> None:
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    root = os.path.abspath(sys.argv[1])
+    kernels = sys.argv[2:] or ["build_bank", "gather_subset"]
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)  # DIR's nsparse_tpu_torch
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("compare_trees: torch.cuda.is_available() is false")
+    tree = load(os.path.join(root, "chip_smoke.py"), "tree_smoke")
+    this = load(os.path.join(here, "chip_smoke.py"), "this_smoke")
+    t_start = time.perf_counter()
+    card = tree.card_line()
+    print(f"tree {root}: {card}", flush=True)
+    s = tree.Smoke(torch, card)
+    s.cuda_lib.KERNELS.get()
+    for phase in (tree.spgemm_phase, tree.esc_layout_phases,
+                  tree.spmv_phases, tree.bsr_spgemm_phases,
+                  this.bank_subset_phase, this.launch_cost_phase):
+        t0 = time.perf_counter()
+        phase(s)
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "
+              "host time", flush=True)
+    table = this.Smoke.kernel_table(s, kernels)
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"tree": root, "kernels": table}))
+
+
+if __name__ == "__main__":
+    main()
