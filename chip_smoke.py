@@ -55,9 +55,9 @@ Phases (any failure exits non-zero before the final line):
                   bsr; ``plan_spgemm_bsr`` on the host, ``spgemm_bsr`` on
                   cuda:0, then new values through ``spgemm_bsr_numeric``
                   (re-blockified on the card by K5, K1 and K6); each C
-                  checked against scipy; with TF32 allowed, the plain tile
-                  products held to full float32 against K9; under
-                  torch.profiler;
+                  checked against scipy; under torch.profiler; the plain
+                  tile products, with TF32 allowed, held to the float64
+                  products (K9's error beside them);
        FEM f64    the bench's 512-node FEM matrix in float64;
      each timed with the kernels, the plain versions and cuSPARSE CSR;
   6. windowed gather (K10) on 262,144 rows for windows 32, 128 and 1024,
@@ -75,9 +75,23 @@ Phases (any failure exits non-zero before the final line):
      ``out``); K11 on the v2 path's call, K5 on the largest ELL call and
      on the FEM value re-run, the same three ways, beside their bounds
      and ``b_val[idx]`` / ``src[idx]``;
+  7c. K9 on tensor cores: the HMMA and DMMA counts of its built library
+     (``cuobjdump --dump-sass``; fails if either is 0); synthetic tiles
+     at bs 64, 128, 192 and 256 (both sub-tile branches), f32 and f64,
+     held to the plain version at rtol 1e-5 / 1e-8 of |A_tile||B_tile|;
+     K9's and the plain version's largest errors against the float64
+     products; K9 on each block path's call by events, profiler and
+     queued time beside its bound, and one ``torch.bmm`` of the
+     pre-gathered pairs (the cuBLAS rate on these tiles);
+  7d. K1: its vector branch (a length not a multiple of 4, the tail
+     alone) and scalar branch (misaligned ``idx`` and ``out`` views) equal
+     to ``gather_plain`` (``torch.equal``, f32 and f64, indices negative
+     and past the end among them); K1 on R-MAT-20's ELL x-shuffle and on
+     the v2 path's fallback shuffle, the same three ways, beside their
+     bounds and ``x[idx]``;
   8. launch cost: host µs per call of each step of the ctypes launch
-     path alone (old and new), of K12, K6, K11 and K5 through
-     ``cuda_lib.launch``, of K1 through the old path (the control) and of
+     path alone (old and new), of K12, K6, K11, K5 and K1 through
+     ``cuda_lib.launch``, of K4 through the old path (the control) and of
      the PyTorch calls that compute the same functions, at 1 tile (1
      unit) and at the main path's own calls: the median of LAUNCH_ROUNDS
      rounds of LAUNCH_REPS back-to-back calls, every step in each round;
@@ -98,6 +112,7 @@ import dataclasses
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -135,9 +150,20 @@ SLEEP_CYCLES = 50_000_000  # a device sleep of about 25 ms at 2 GHz
 # the operation bound of the two SpMV kernels
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
 # peak rates for dense tile products at full precision (the same data
-# sheet): float32 outside the tensor cores, float64 on them (DMMA), for
-# the operation bound of K9
-TILE_PEAK_FLOPS = {4: 67e12, 8: 67e12}
+# sheet), for the operation bound of K9.  Float32: the TPU kernel runs at
+# Precision.HIGHEST, and one TF32 pass keeps about three digits, so K9
+# splits each operand in two and takes three TF32 products per float32
+# product (3xTF32), the least work that keeps float32 accuracy on the
+# tensor cores: a third of the 495 TFLOP/s TF32 peak.  Float64: DMMA.
+TILE_PEAK_FLOPS = {4: 495e12 / 3, 8: 67e12}
+# the FFMA bound K9's float32 rows were measured against before (67
+# TFLOP/s outside the tensor cores), printed beside the restated one
+FFMA_PEAK = 67e12
+# K9's synthetic checks, (bs, A and B tiles, C tiles): bs 64 and 192 take
+# the 64 x 64 sub-tile branch, 128 and 256 the 128 x 128 one
+K9_SYNTH = ((64, 5, 7), (128, 4, 6), (192, 4, 5), (256, 3, 4))
+# K1's branch checks: outputs (one not a multiple of 4) and source length
+K1_CHECK = (1_000_003, 300_000)
 
 # name: (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -1363,14 +1389,17 @@ def bsr_path(s: Smoke, path: str, a, plan_d, fn, expect,
     lib_ms = cusparse_spgemm_ms(s, a, path)
     ms = float(np.mean(t["kernels"]))
     tile_flops = 2 * plan_d.n_pairs * plan_d.bs ** 3
-    op_bound = tile_flops / TILE_PEAK_FLOPS[a.val.element_size()] * 1e3
+    vb = a.val.element_size()
+    op_bound = tile_flops / TILE_PEAK_FLOPS[vb] * 1e3
+    ffma = f"; {tile_flops / FFMA_PEAK * 1e3:.4f} ms at the FFMA peak" \
+        if vb == 4 else ""
     print(f"{path} [{s.name}, {s.card}]: kernels {ms:.4f} ms "
           f"({t['kernels']})  plain {np.mean(t['plain']):.4f} ms "
           f"({t['plain']})  cuSPARSE CSR A @ A {fmt_ms(lib_ms)} ms  "
           f"{plan_d.flops / (ms * 1e-3) / 1e9:.2f} GFLOPS useful  "
           f"{tile_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of tile products "
-          f"(operation bound of the tile products {op_bound:.4f} ms)",
-          flush=True)
+          f"(operation bound of the tile products {op_bound:.4f} ms"
+          f"{' as 3xTF32' if vb == 4 else ' on DMMA'}{ffma})", flush=True)
 
 
 def bsr_spgemm_phases(s: Smoke) -> None:
@@ -1439,35 +1468,39 @@ def bsr_spgemm_phases(s: Smoke) -> None:
 
 def bsr_precision_check(s: Smoke, plan_d, tile_products) -> None:
     """With TF32 turned on by the caller, the plain tile products must
-    still compute in full float32: held against K9 at 1e-6 of
-    |A_tile||B_tile|.  The unguarded batched product is shown beside it,
-    to show what TF32 would have cost."""
+    still compute in full float32: held against the float64 products of
+    the same tiles at 1e-6 of |A_tile||B_tile|.  K9 (``tile_products``)
+    and the unguarded batched product are shown beside it, the latter to
+    show what TF32 would have cost."""
     torch = s.torch
     from nsparse_tpu_torch.ops.kernels import bsr_blocks
 
     args = (plan_d.a_blocks, plan_d.b_blocks, plan_d.pair_a, plan_d.pair_b,
             plan_d.pair_c, plan_d.c_pair_start)
-    want = tile_products(plan_d)
-    scale = bsr_blocks.spgemm_bsr_blocks_plain(
-        args[0].abs(), args[1].abs(), *args[2:]).clamp(min=1e-30)
+    plain_fn = bsr_blocks.spgemm_bsr_blocks_plain
+    exact = plain_fn(args[0].double(), args[1].double(), *args[2:])
+    scale = plain_fn(args[0].abs(), args[1].abs(), *args[2:]).clamp(
+        min=1e-30)
+    k9 = tile_products(plan_d)
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        plain = bsr_blocks.spgemm_bsr_blocks_plain(*args)
+        plain = plain_fn(*args)
         kept = torch.backends.cuda.matmul.allow_tf32
-        raw = torch.zeros_like(want).index_add_(
+        raw = torch.zeros_like(k9).index_add_(
             0, plan_d.pair_c.long(),
             torch.bmm(args[0][plan_d.pair_a.long()],
                       args[1][plan_d.pair_b.long()]))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
-    rel = {name: float(((y - want).abs() / scale).max())
+    rel = {name: float(((y.double() - exact).abs() / scale).max())
            for name, y in (("plain tile products", plain),
-                           ("unguarded bmm", raw))}
+                           ("K9 (3xTF32)", k9), ("unguarded bmm", raw))}
+    del exact
     ok = rel["plain tile products"] <= 1e-6 and kept
-    print(f"fem-bsr-spgemm with TF32 allowed: max |err| / (|A||B|) vs K9 "
-          f"{rel}; caller's setting kept {kept}: {'pass' if ok else 'FAIL'}",
-          flush=True)
+    print(f"fem-bsr-spgemm with TF32 allowed: max |err| / (|A||B|) vs the "
+          f"float64 tile products {rel}; caller's setting kept {kept}: "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail("block tile products lost full float32 precision under TF32")
 
@@ -1649,6 +1682,52 @@ def tile_copy_phase(s: Smoke) -> None:
               f"queued behind a sleep; bound {bound:.4f} ms", flush=True)
 
 
+def measure_calls(s: Smoke, k: str, label: str, calls, kernel: str,
+                  lib_name=None) -> None:
+    """One pass over ``calls`` of kernel ``k`` (each launches the device
+    kernel named ``kernel...`` once): CUDA events, the profiler's device
+    time (per-launch means, summed), queued behind a sleep; its bound and
+    the share of it each reaches, and its library call by events and
+    queued (``lib_name``; None: no library call)."""
+    torch = s.torch
+    arglists = [s.fresh(k, a) for a in calls]
+    w = s.wrappers[k]
+
+    def run():
+        for a in arglists:
+            w(*a)
+
+    ev_ms = s.time_cuda(run, trials=TRIALS)
+    got = [profiled_device_ms(torch, lambda a=a: w(*a), kernel)
+           for a in arglists]
+    dev_ms = None if any(m is None for m, _ in got) \
+        else sum(m for m, _ in got)
+    queued = queued_device_ms(torch, run)
+    bound = sum(s.bound_ms(k, a, s.run(k, s.plain[k], a))[0] for a in calls)
+
+    def share(ms):
+        return "not measured" if ms is None else f"{100 * bound / ms:.1f}%"
+
+    lib_txt = ""
+    if lib_name:
+        lib = [s.library_call(k, a) for a in calls]
+
+        def run_lib():
+            for f in lib:
+                f()
+
+        lib_txt = (f"; {lib_name} {s.time_cuda(run_lib, trials=TRIALS):.4f} "
+                   f"ms by CUDA events, "
+                   f"{fmt_ms(queued_device_ms(torch, run_lib))} ms queued")
+    print(f"{label} [{s.name}, {s.card}]: {len(calls)} call(s), "
+          f"{ev_ms:.4f} ms by CUDA events, {fmt_ms(dev_ms)} ms device "
+          f"time by torch.profiler (launches recorded per call, of 10: "
+          f"{[m for _, m in got]}), {fmt_ms(queued)} ms queued behind a "
+          f"sleep; bound {bound:.4f} ms: {share(ev_ms)} by events, "
+          f"{share(dev_ms)} by the profiler, {share(queued)} queued"
+          f"{lib_txt}", flush=True)
+
+
 def bank_subset_phase(s: Smoke) -> None:
     """K11 build_bank and K5 gather_subset.  Each branch held against its
     plain version with ``torch.equal`` in f32 and f64: K11's vector branch
@@ -1717,52 +1796,173 @@ def bank_subset_phase(s: Smoke) -> None:
             gt.gather_subset_plain(src, idx, ids, unit, want, other)
             check(f"K5 {what}, {dtype}", got, want)
 
-    def measure(k, label, calls, kernel, lib_name):
-        """One pass over ``calls`` of kernel ``k``: CUDA events, the
-        profiler's device time (per-launch means, summed), queued behind a
-        sleep; its bound and its library call by events."""
-        arglists = [s.fresh(k, a) for a in calls]
-        w = s.wrappers[k]
-
-        def run():
-            for a in arglists:
-                w(*a)
-
-        ev_ms = s.time_cuda(run, trials=TRIALS)
-        got = [profiled_device_ms(torch, lambda a=a: w(*a), kernel)
-               for a in arglists]
-        dev_ms = None if any(m is None for m, _ in got) \
-            else sum(m for m, _ in got)
-        queued = queued_device_ms(torch, run)
-        bound = sum(s.bound_ms(k, a, s.run(k, s.plain[k], a))[0]
-                    for a in calls)
-        lib = [s.library_call(k, a) for a in calls]
-
-        def run_lib():
-            for f in lib:
-                f()
-
-        lib_ms = s.time_cuda(run_lib, trials=TRIALS)
-        print(f"{label} [{s.name}, {s.card}]: {len(calls)} call(s), "
-              f"{ev_ms:.4f} ms by CUDA events, {fmt_ms(dev_ms)} ms device "
-              f"time by torch.profiler (launches recorded per call, of 10: "
-              f"{[m for _, m in got]}), {fmt_ms(queued)} ms queued behind a "
-              f"sleep; bound {bound:.4f} ms; {lib_name} {lib_ms:.4f} ms by "
-              f"CUDA events", flush=True)
-
     calls = [a for p, a in s.calls["build_bank"] if p == "spgemm"]
     if calls:
-        measure("build_bank", "K11 on spgemm", calls, "build_bank_kernel",
-                "b_val[idx]")
+        measure_calls(s, "build_bank", "K11 on spgemm", calls,
+                      "build_bank_kernel", "b_val[idx]")
     ell = [(p, a) for p, a in s.calls["gather_subset"] if "-ell-" in p]
     if ell:
         path, args = max(ell, key=lambda c: c[1][2].numel() * c[1][3])
-        measure("gather_subset", f"K5 on {path}, its largest ELL call",
-                [args], "gather_subset", "src[idx]")
+        measure_calls(s, "gather_subset",
+                      f"K5 on {path}, its largest ELL call", [args],
+                      "gather_subset", "src[idx]")
     calls = [a for p, a in s.calls["gather_subset"] if p == "fem-bsr-rerun"]
     if calls:
-        measure("gather_subset", "K5 on fem-bsr-rerun", calls,
-                "gather_subset", "src[idx]")
+        measure_calls(s, "gather_subset", "K5 on fem-bsr-rerun", calls,
+                      "gather_subset", "src[idx]")
+
+
+def sass_counts(source: str) -> dict:
+    """How many HMMA and DMMA (tensor-core) instructions the built library
+    of ``csrc/<source>.cu`` holds, from ``cuobjdump --dump-sass``."""
+    from nsparse_tpu_torch.buildlib import BUILD_DIR
+    from nsparse_tpu_torch.ops.kernels.cuda_lib import nvcc
+
+    lib = glob.glob(os.path.join(BUILD_DIR, f"libnsparse_{source}-*.so"))
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    if not lib or not os.path.exists(tool):
+        fail(f"no built {source} library or no cuobjdump ({lib}, {tool})")
+    sass = subprocess.run([tool, "--dump-sass", lib[0]], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {n: len(re.findall(rf"\b{n}\.", sass)) for n in ("HMMA", "DMMA")}
+
+
+def k9_phase(s: Smoke, sass: bool = True) -> None:
+    """K9 spgemm_bsr_blocks.  The HMMA and DMMA instructions of its built
+    library (``sass``: fail if either is missing).  Synthetic tiles at bs
+    64, 128, 192 and 256 (both sub-tile branches; C tiles without pairs
+    among them), f32 and f64, held against the plain version at rtol 1e-5
+    (f32) / 1e-8 (f64) of |A_tile||B_tile|, with K9's and the plain
+    version's largest errors against the float64 products.  Then, where
+    the block paths have run, each of their K9 calls: the same errors, its
+    device time by CUDA events, by the profiler and queued behind a sleep
+    beside its bound, the plain version, and one ``torch.bmm`` of the
+    pre-gathered pairs (cuBLAS on these tile shapes, without the gather and
+    the sum: a different function, so no library column)."""
+    torch = s.torch
+    from nsparse_tpu_torch.ops.kernels import bsr_blocks
+    from nsparse_tpu_torch.utils.device import highest_matmul_precision
+
+    k, w, plain = ("spgemm_bsr_blocks", bsr_blocks.spgemm_bsr_blocks,
+                   bsr_blocks.spgemm_bsr_blocks_plain)
+    got = sass_counts("spgemm_bsr")
+    print(f"K9 SASS (cuobjdump of the built library): {got}", flush=True)
+    if sass and not all(got.values()):
+        fail(f"K9's library lacks tensor-core instructions: {got}")
+
+    def errors(args, out):
+        """Max |err| / (|A||B|) of ``out`` and of the plain version against
+        the float64 products; the plain version's output."""
+        a, b, *rest = args
+        want = plain(*args)
+        exact = plain(a.double(), b.double(), *rest)
+        scale = plain(a.abs(), b.abs(), *rest).double().clamp(min=1e-300)
+        rel = [float(((y.double() - exact).abs() / scale).max())
+               for y in (out, want)]
+        return rel, want
+
+    for dtype in (torch.float32, torch.float64):
+        for bs, n_t, n_c in K9_SYNTH:
+            rng = np.random.default_rng(bs)
+            counts = rng.integers(1, 5, n_c)
+            counts[1] = counts[-1] = 0  # C tiles without pairs
+            n_p = int(counts.sum())
+            tiles = [torch.from_numpy(rng.standard_normal(
+                (n_t, bs, bs))).to(s.dev, dtype) for _ in range(2)]
+            i32 = [torch.from_numpy(x.astype(np.int32)).to(s.dev) for x in (
+                rng.integers(0, n_t, n_p), rng.integers(0, n_t, n_p),
+                np.repeat(np.arange(n_c), counts),
+                np.concatenate([[0], np.cumsum(counts)]))]
+            args = (*tiles, *i32)
+            out = w(*args)
+            (e_k9, e_pl), want = errors(args, out)
+            ok = not bool(((out - want).abs() > s.tolerance(k, args)).any())
+            print(f"K9 bs {bs} ({128 if bs % 128 == 0 else 64}-wide "
+                  f"sub-tiles), {n_p} pairs on {n_c} C tiles, {dtype}: "
+                  f"within rtol of the plain version: "
+                  f"{'pass' if ok else 'FAIL'}; max |err| / (|A||B|) vs "
+                  f"float64: K9 {e_k9:.3g}, plain {e_pl:.3g}", flush=True)
+            if not ok:
+                fail(f"K9 at bs {bs} ({dtype}) differs from its plain version")
+
+    seen = set()
+    for path, args in s.calls[k]:
+        if path in seen:
+            continue
+        seen.add(path)
+        out = w(*args)
+        (e_k9, e_pl), _ = errors(args, out)
+        a, b, pa, pb = args[:4]
+        flops = 2.0 * pa.numel() * a.shape[-1] ** 3
+        plain_ms = s.time_cuda(lambda: plain(*args), trials=5)
+        ag, bg = a[pa.long()], b[pb.long()]
+        with highest_matmul_precision():
+            bmm_ms = s.time_cuda(lambda: torch.bmm(ag, bg), trials=5)
+        del ag, bg
+        print(f"K9 on {path}: {pa.numel()} pairs, {out.dtype}: max |err| / "
+              f"(|A||B|) vs float64 K9 {e_k9:.3g}, plain {e_pl:.3g}; plain "
+              f"version {plain_ms:.4f} ms; cuBLAS reference [{s.name}, "
+              f"{s.card}]: one torch.bmm of the pre-gathered pairs in full "
+              f"{out.dtype} (no gather, no sum) {bmm_ms:.4f} ms, "
+              f"{flops / (bmm_ms * 1e-3) / 1e12:.2f} TFLOP/s", flush=True)
+        torch.cuda.empty_cache()
+        measure_calls(s, k, f"K9 on {path}", [args], "spgemm_bsr_kernel")
+
+
+def k1_phase(s: Smoke) -> None:
+    """K1 gather.  Its vector branch (16-byte aligned ``idx`` and ``out``,
+    K1_CHECK[0] outputs, not a multiple of 4) and its scalar branch (an
+    ``idx`` view and an ``out`` view one element off alignment) held
+    against ``gather_plain`` with ``torch.equal`` in f32 and f64, indices
+    negative and past the end of x among them.  Then, where the paths have
+    run, K1 on R-MAT-20's ELL x-shuffle (its largest call) and on the v2
+    path's fallback shuffle (R-MAT-14), by CUDA events, by the profiler's
+    device time and queued behind a device sleep, beside their bounds and
+    ``x[idx]``."""
+    torch, cl = s.torch, s.cuda_lib
+    from nsparse_tpu_torch.ops.kernels import shuffle
+
+    def check(what, got, want):
+        ok = torch.equal(got, want)
+        print(f"K1 {what}: equal to gather_plain: {'pass' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"K1 {what} differs from gather_plain")
+
+    n, n_x = K1_CHECK
+    rng = np.random.default_rng(SEED)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.randn(n_x, dtype=dtype, device=s.dev)
+        raw = torch.from_numpy(rng.integers(-5, n_x + 5, n + 1).astype(
+            np.int32)).to(s.dev)
+        idx = raw[:n]
+        want = shuffle.gather_plain(x, idx)
+        check(f"vector branch, {n} outputs, {dtype}", shuffle.gather(x, idx),
+              want)
+        check(f"vector branch, 3 outputs (the tail alone), {dtype}",
+              shuffle.gather(x, idx[:3]), want[:3])
+        # an idx view one element off 16-byte alignment
+        check(f"scalar branch, idx one element off, {dtype}",
+              shuffle.gather(x, raw[1:]), shuffle.gather_plain(x, raw[1:]))
+        # an out view one element off (the wrapper allocates its own out)
+        out = torch.full((n + 1,), 7.0, dtype=dtype, device=s.dev)[1:]
+        cl.launch("gather", "nsp_gather", x, n_x, idx, out, n)
+        check(f"scalar branch, out one element off, {dtype}", out, want)
+
+    picks = []
+    ell = [a for p, a in s.calls["gather"]
+           if p == f"rmat{RMAT_SCALE}-ell-xshuffle"]
+    if ell:
+        picks.append((f"R-MAT-{RMAT_SCALE} ELL x-shuffle (its largest call)",
+                      max(ell, key=lambda a: a[1].numel())))
+    fb = [a for p, a in s.calls["gather"]
+          if p == "spgemm" and a[0].numel() == FB_PRODUCTS]
+    if fb:
+        picks.append((f"R-MAT-{SCALE} v2 fallback shuffle", fb[0]))
+    for label, args in picks:
+        measure_calls(s, "gather", f"K1 on {label}, {args[1].numel()} outputs "
+                      f"from {args[0].numel()} values", [args], "gather",
+                      "x[idx]")
 
 
 def host_us(torch, fn, reps: int = LAUNCH_REPS) -> float:
@@ -1788,7 +1988,8 @@ def launch_cost_phase(s: Smoke) -> None:
     printed, with the fastest and slowest."""
     torch, cl = s.torch, s.cuda_lib
     from nsparse_tpu_torch.buildlib import BUILD_DIR
-    from nsparse_tpu_torch.ops.kernels import gather_tiles, piecewise, shuffle
+    from nsparse_tpu_torch.ops.kernels import (
+        gather_tiles, piecewise, runcopy, shuffle)
 
     src = torch.randn(2 * 1024, device=s.dev)
     ids = torch.ones(1, dtype=torch.int32, device=s.dev)
@@ -1819,6 +2020,9 @@ def launch_cost_phase(s: Smoke) -> None:
     bank_args = (torch.arange(64 * 128 - piecewise.BIAS, dtype=torch.int32,
                               device=s.dev), 64,
                  torch.randn(8192, device=s.dev), 1)
+    # K4 on one run of one tile, the control on the old path
+    rc_plan = runcopy.build_runcopy_plan([0], [1024], src.numel(),
+                                         dst=[0]).to(s.dev)
     steps = {
         "old path: cuda_lib.entry": lambda: cl.entry("nsp_gather_tiles8",
                                                      torch.float32),
@@ -1857,8 +2061,9 @@ def launch_cost_phase(s: Smoke) -> None:
         "K5 gather_subset, 1 unit":
             lambda: gather_tiles.gather_subset(*unit_args),
         "src[idx], 1 unit": s.library_call("gather_subset", unit_args),
-        "K1 gather (old path, the control), 1 tile":
-            lambda: shuffle.gather(src, idx),
+        "K4 runcopy (old path, the control), one run of 1 tile":
+            lambda: runcopy.runcopy(rc_plan, src),
+        "K1 gather, 1 tile": lambda: shuffle.gather(src, idx),
         "index_select, 1 tile": lambda: tiles.index_select(0, il),
         "index_copy_, 1 tile":
             lambda: tiles.index_copy_(0, il, out.view(1, 1024)),
@@ -1916,7 +2121,7 @@ def main() -> None:
 
     for phase in (spgemm_phase, esc_layout_phases, kfold_phase, spmv_phases,
                   bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,
-                  bank_subset_phase, launch_cost_phase):
+                  bank_subset_phase, k9_phase, k1_phase, launch_cost_phase):
         t0 = time.perf_counter()
         phase(s)
         print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "

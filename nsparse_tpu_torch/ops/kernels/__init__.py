@@ -13,6 +13,10 @@ runs ``flat_gather``.  SpMV: K5 ``gather_tiles.gather_subset``, K6
 ``bsr_blocks.spgemm_bsr_blocks`` (with K5, K1 and K6 on a value re-run's
 re-blockification).  K10 ``gather_tiles.windowed_gather`` stands alone,
 as its TPU counterpart does.
+K9 multiplies on the tensor cores: float32 as three TF32 products per
+product (3xTF32, float32 accuracy), float64 on DMMA.
 A wrapper runs the plain version for CPU tensors; for CUDA tensors it
 launches its kernel (and adds one to its ``launches`` count) or raises.
+K1, K5, K6, K9, K11 and K12 launch through ``cuda_lib.launch``; the
+others still through ``cuda_lib.entry``, ``stream`` and ``ptr``.
 """

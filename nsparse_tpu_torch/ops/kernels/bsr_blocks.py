@@ -8,7 +8,9 @@ import torch
 from nsparse_tpu_torch.ops.kernels import cuda_lib
 from nsparse_tpu_torch.utils.device import highest_matmul_precision
 
-SUB = 64  # the kernel's C sub-tile edge: bs must be a multiple
+# the kernel's C sub-tile edges: 128 x 128 where bs allows it, else 64 x
+# 64, so bs must be a multiple of SUB
+SUB = 64
 
 
 def spgemm_bsr_blocks_plain(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
@@ -55,22 +57,19 @@ def spgemm_bsr_blocks(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     if bs % SUB:
         raise ValueError(f"spgemm_bsr_blocks: the kernel needs bs a multiple "
                          f"of {SUB}, got {bs}")
-    cuda_lib.require_cuda("spgemm_bsr_blocks", a_blocks, b_blocks, pair_a,
-                          pair_b, c_pair_start)
     n_c = int(c_pair_start.numel()) - 1
     c = torch.empty(n_c, bs, bs, dtype=a_blocks.dtype,
                     device=a_blocks.device)
-    if n_c and n_pairs:
-        fn = cuda_lib.entry("nsp_spgemm_bsr", a_blocks.dtype)
-        with torch.cuda.device(a_blocks.device):
-            rc = fn(cuda_lib.ptr(a_blocks), cuda_lib.ptr(b_blocks),
-                    cuda_lib.ptr(pair_a), cuda_lib.ptr(pair_b),
-                    cuda_lib.ptr(c_pair_start), n_c, bs, cuda_lib.ptr(c),
-                    cuda_lib.stream(a_blocks))
-        cuda_lib.check(rc, "spgemm_bsr_blocks")
-        spgemm_bsr_blocks.launches += 1
-    else:
-        c.zero_()
+    args = (a_blocks, b_blocks, pair_a, pair_b, c_pair_start)
+    if not (n_c and n_pairs):
+        cuda_lib.validate("spgemm_bsr_blocks", *args, c)
+        return c.zero_()
+    # the kernel stages tiles with 16-byte copies
+    if any(t.data_ptr() % 16 for t in (a_blocks, b_blocks)):
+        raise ValueError("spgemm_bsr_blocks: tiles must start 16-byte "
+                         "aligned")
+    cuda_lib.launch("spgemm_bsr_blocks", "nsp_spgemm_bsr", *args, n_c, bs, c)
+    spgemm_bsr_blocks.launches += 1
     return c
 
 

@@ -69,15 +69,13 @@ def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """
     if x.device.type == "cpu":
         return gather_plain(x, idx)
-    cuda_lib.require_cuda("gather", x, idx)
     out = torch.empty(idx.numel(), dtype=x.dtype, device=x.device)
     if out.numel():
-        fn = cuda_lib.entry("nsp_gather", x.dtype)
-        with torch.cuda.device(x.device):
-            rc = fn(cuda_lib.ptr(x), x.numel(), cuda_lib.ptr(idx),
-                    cuda_lib.ptr(out), out.numel(), cuda_lib.stream(x))
-        cuda_lib.check(rc, "gather")
+        cuda_lib.launch("gather", "nsp_gather", x, x.numel(), idx, out,
+                        out.numel())
         gather.launches += 1
+    else:
+        cuda_lib.validate("gather", x, idx, out)
     return out
 
 

@@ -1,6 +1,7 @@
 """The lean launch path (``cuda_lib.launch``) of K6 scatter_tiles, K12
-gather_tiles8, K11 build_bank and K5 gather_subset, without a card and
-without building the kernel library.
+gather_tiles8, K11 build_bank, K5 gather_subset, K1 gather and K9
+spgemm_bsr_blocks, without a card and without building the kernel
+library.
 
 The library is never built or loaded here: every test that could reach it
 stubs ``cuda_lib.KERNELS`` (and clears the resolved-entry cache), so a
@@ -19,7 +20,27 @@ import torch
 
 from nsparse_tpu.ops.kernels.gather_pallas import scatter_tiles as j_scatter
 
-from nsparse_tpu_torch.ops.kernels import cuda_lib, gather_tiles, piecewise
+from nsparse_tpu_torch.ops.kernels import (
+    bsr_blocks,
+    cuda_lib,
+    gather_tiles,
+    piecewise,
+    shuffle,
+)
+
+
+@pytest.fixture(autouse=True)
+def _keep_launch_counts():
+    """Tests here count launches on stubbed paths: every wrapper's count
+    is left as it was, for the tests of other files that share a
+    worker."""
+    wrappers = (gather_tiles.scatter_tiles, gather_tiles.gather_tiles8,
+                gather_tiles.gather_subset, piecewise.build_bank,
+                shuffle.gather, bsr_blocks.spgemm_bsr_blocks)
+    saved = [w.launches for w in wrappers]
+    yield
+    for w, n in zip(wrappers, saved):
+        w.launches = n
 
 
 class _Library:
@@ -162,6 +183,21 @@ def _k11(d):
                                 64, torch.zeros(300, device=d))
 
 
+def _k1(d, n=1000):
+    return shuffle.gather(torch.zeros(500, device=d),
+                          torch.zeros(n, dtype=torch.int32, device=d))
+
+
+def _k9(d, n_pairs=3, bs=64):
+    """K9 on two tiles, ``n_pairs`` pairs all into the first of two C
+    tiles."""
+    i32 = dict(dtype=torch.int32, device=d)
+    tiles = torch.zeros(2, bs, bs, device=d)
+    p = torch.zeros(n_pairs, **i32)
+    return bsr_blocks.spgemm_bsr_blocks(
+        tiles, tiles, p, p, p, torch.tensor([0, n_pairs, n_pairs], **i32))
+
+
 # the argument of the null ``other`` pointer: the int 0, in that slot only
 K5_NULL_OTHER = 6
 
@@ -178,7 +214,9 @@ K5_NULL_OTHER = 6
     (_k5, "nsp_gather_subset", None),
     (lambda d: _k5(d, other=False), "nsp_gather_subset", K5_NULL_OTHER),
     (_k11, "nsp_build_bank", None),
-], ids=["K6", "K12", "K5", "K5-null-other", "K11"])
+    (_k1, "nsp_gather", None),
+    (_k9, "nsp_spgemm_bsr", None),
+], ids=["K6", "K12", "K5", "K5-null-other", "K11", "K1", "K9"])
 def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name, null_slot):
     """The wrappers on the lean path hand ``launch`` one argument per C
     parameter before the stream: a tensor for each pointer, an int for
@@ -228,21 +266,114 @@ def test_k5_passes_its_sizes(monkeypatch):
     lambda: _k5("meta", n_ids=0),
     lambda: _k5("meta", other=False),
     lambda: _k11("meta"),
+    lambda: _k1("meta"),
+    lambda: _k1("meta", n=0),
+    lambda: _k9("meta"),
+    lambda: _k9("meta", n_pairs=0),
 ], ids=["K6", "K6-empty", "K12-empty", "K5", "K5-empty", "K5-null-other",
-        "K11"])
+        "K11", "K1", "K1-empty", "K9", "K9-no-pairs"])
 def test_wrappers_refuse_a_non_cuda_device(no_library, call):
-    """Off the CPU, K6, K12, K5 and K11 launch on a card or raise, also
-    when there is nothing to move; no launch is counted."""
+    """Off the CPU, K6, K12, K5, K11, K1 and K9 launch on a card or raise,
+    also when there is nothing to move; no launch is counted."""
     def counts():
         return (gather_tiles.scatter_tiles.launches,
                 gather_tiles.gather_tiles8.launches,
                 gather_tiles.gather_subset.launches,
-                piecewise.build_bank.launches)
+                piecewise.build_bank.launches, shuffle.gather.launches,
+                bsr_blocks.spgemm_bsr_blocks.launches)
 
     before = counts()
     with pytest.raises(ValueError, match="must be on one CUDA device"):
         call()
     assert counts() == before
+
+
+@pytest.mark.parametrize("x, idx, match", [
+    (torch.zeros(500, device="meta"),
+     torch.zeros(8, dtype=torch.int64, device="meta"), "int32"),
+    (torch.zeros(2, 250, device="meta").t(),
+     torch.zeros(8, dtype=torch.int32, device="meta"), "contiguous"),
+    (torch.zeros(500, device="meta"),
+     torch.zeros(8, dtype=torch.int32, device="meta"),
+     r"must be on one CUDA device, got \['meta'\]"),
+    (torch.zeros(500, device="meta"), torch.zeros(8, dtype=torch.int32),
+     r"must be on one CUDA device, got \['cpu', 'meta'\]"),
+], ids=["int64-indices", "non-contiguous-x", "meta", "mixed-devices"])
+def test_k1_refuses_before_touching_the_library(no_library, x, idx, match):
+    before = shuffle.gather.launches
+    with pytest.raises(ValueError, match=match):
+        shuffle.gather(x, idx)
+    assert shuffle.gather.launches == before
+
+
+def test_k1_counts_one_launch_per_call_that_moves_values(monkeypatch):
+    """K1 hands ``launch`` x, its length, idx, the output it allocated and
+    the output length; a call with no outputs validates and launches
+    nothing."""
+    seen, checked = [], []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: seen.append(args))
+    monkeypatch.setattr(cuda_lib, "validate",
+                        lambda what, *args: checked.append(args))
+    before = shuffle.gather.launches
+    out = _k1("meta", n=1001)
+    _k1("meta", n=0)
+    assert shuffle.gather.launches == before + 1
+    (x, n_x, idx, got, n), = seen
+    assert got is out and (n_x, n, idx.numel()) == (500, 1001, 1001)
+    assert out.shape == (1001,) and len(checked) == 1
+
+
+@pytest.mark.parametrize("call, error, match", [
+    (lambda: bsr_blocks.spgemm_bsr_blocks(
+        torch.zeros(2, 64, 64, device="meta"),
+        torch.zeros(2, 64, 64, dtype=torch.float64, device="meta"),
+        *3 * (torch.zeros(1, dtype=torch.int32, device="meta"),),
+        torch.tensor([0, 1], dtype=torch.int32, device="meta")),
+     TypeError, "share a dtype"),
+    (lambda: bsr_blocks.spgemm_bsr_blocks(
+        torch.zeros(2, 64, 64, device="meta"),
+        torch.zeros(2, 64, 64, device="meta"),
+        torch.zeros(1, dtype=torch.int32, device="meta"),
+        torch.zeros(2, dtype=torch.int32, device="meta"),
+        torch.zeros(1, dtype=torch.int32, device="meta"),
+        torch.tensor([0, 1], dtype=torch.int32, device="meta")),
+     ValueError, "differ in length"),
+    (lambda: _k9("meta", bs=96), ValueError, "multiple of 64"),
+    (lambda: _k9("meta"), ValueError, "must be on one CUDA device"),
+    (lambda: bsr_blocks.spgemm_bsr_blocks(
+        torch.zeros(2, 64, 64, device="meta"),
+        torch.zeros(2, 64, 64, device="meta"),
+        *3 * (torch.zeros(1, dtype=torch.int64, device="meta"),),
+        torch.tensor([0, 1], dtype=torch.int32, device="meta")),
+     ValueError, "int32"),
+], ids=["mixed-dtypes", "unequal-pairs", "bs-96", "meta", "int64-pairs"])
+def test_k9_refuses_before_touching_the_library(no_library, call, error,
+                                                match):
+    before = bsr_blocks.spgemm_bsr_blocks.launches
+    with pytest.raises(error, match=match):
+        call()
+    assert bsr_blocks.spgemm_bsr_blocks.launches == before
+
+
+def test_k9_launches_the_kernel_never_the_plain_version(monkeypatch):
+    """Off the CPU K9 goes to ``launch`` with its C tiles, their count and
+    bs, and counts the launch; tiles without pairs are zeroed after a
+    validation, with no launch.  The plain version is never called."""
+    seen, checked = [], []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: seen.append(args))
+    monkeypatch.setattr(cuda_lib, "validate",
+                        lambda what, *args: checked.append(args))
+    monkeypatch.setattr(bsr_blocks, "spgemm_bsr_blocks_plain",
+                        lambda *args: pytest.fail("plain version called"))
+    before = bsr_blocks.spgemm_bsr_blocks.launches
+    c = _k9("meta", bs=128)
+    _k9("meta", n_pairs=0)
+    assert bsr_blocks.spgemm_bsr_blocks.launches == before + 1
+    (*_, n_c, bs, out), = seen
+    assert out is c and c.shape == (2, 128, 128) and (n_c, bs) == (2, 128)
+    assert len(checked) == 1
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

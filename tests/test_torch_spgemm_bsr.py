@@ -282,6 +282,58 @@ def test_precision_guard_survives_the_legacy_tf32_flag():
         torch.set_float32_matmul_precision(saved)
 
 
+def _tf32(x):
+    """TF32 rounding as ``cvt.rna.tf32.f32`` does it: to nearest, ties
+    away from zero, to 10 mantissa bits (float32's low 13 bits zeroed)."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def test_tf32_rounding_model():
+    """Ties (half a TF32 ulp, 2^-11 at 1) go away from zero, in both
+    signs; other values to the nearest TF32 value."""
+    x = np.array([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 3 * 2**-12,
+                  3 * 2**-20], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), [1 + 2**-10, -(1 + 2**-10), 1, 1 + 2**-10, 3 * 2**-20])
+
+
+@pytest.mark.parametrize("bs", [64, 256])
+def test_three_tf32_products_keep_float32_accuracy(bs):
+    """A numpy model of K9's float32 arithmetic on the card (3xTF32): each
+    operand split x = hi + lo, hi = tf32(x), lo = tf32(x - hi), and the
+    products lo*hi + hi*lo + hi*hi summed.  On FEM tiles it stays within
+    1e-6 of |A_tile||B_tile| of the float64 products, where one TF32 pass
+    (hi*hi alone) misses 1e-5: the reason K9 takes three passes, and its
+    float32 bound is a third of the TF32 peak (the JAX kernel runs at
+    Precision.HIGHEST)."""
+    a = nt.fem_block_csr(64, dof=16, neighbors=4, bandwidth=8,
+                         dtype=np.float32, seed=2)
+    vals = np.random.default_rng(bs).standard_normal(a.nnz)
+    a = a.with_values(torch.from_numpy(vals.astype(np.float32)))
+    plan = tbsr.plan_spgemm_bsr(a, a, bs)
+    ta, tb = plan.a_blocks.numpy(), plan.b_blocks.numpy()
+    pa, pb, pc = (plan.pair_a.numpy(), plan.pair_b.numpy(),
+                  plan.pair_c.numpy())
+
+    def tiles(x, y):
+        c = np.zeros((plan.n_c_blocks, bs, bs))
+        np.add.at(c, pc, np.matmul(x[pa].astype(np.float64),
+                                   y[pb].astype(np.float64)))
+        return c
+
+    exact, scale = tiles(ta, tb), tiles(np.abs(ta), np.abs(tb))
+    ah, bh = _tf32(ta), _tf32(tb)
+    al, bl = _tf32(ta - ah), _tf32(tb - bh)
+    three = (tiles(al, bh) + tiles(ah, bl) + tiles(ah, bh)).astype(np.float32)
+    one = tiles(ah, bh).astype(np.float32)
+    live = scale > 0
+    err3 = np.abs(three - exact)[live] / scale[live]
+    err1 = np.abs(one - exact)[live] / scale[live]
+    assert err3.max() <= 1e-6
+    assert err1.max() > 1e-5
+
+
 def test_k9_wrapper_refuses_bad_inputs():
     """Mismatched tiles or pair arrays raise; off the CPU the wrapper
     launches the kernel or raises, never the plain version."""

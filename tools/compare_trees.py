@@ -8,18 +8,23 @@ archive`` of another commit, or ``.``).  The script imports DIR's
 ``nsparse_tpu_torch`` and DIR's own ``chip_smoke.py``, runs that script's
 path phases (SpGEMM window, the other ESC layouts, SpMV, block SpGEMM),
 which print their path times and record each kernel's calls, and then,
-from this tree's ``chip_smoke.py``: the K11/K5 phase (device time by the
-profiler and queued behind a sleep, on the calls DIR's paths made), the
-launch-cost phase, and the kernel table's rows of KERNEL (default:
-build_bank gather_subset).  Run it once per tree in one call of the
-card, in turns (parent, change, change, parent), to compare them.
+from this tree's ``chip_smoke.py``, on the calls DIR's paths made: the
+phase of each KERNEL that has one (K9 spgemm_bsr_blocks: ``k9_phase``,
+without its tensor-core check; K1 gather: ``k1_phase``; K11 build_bank
+and K5 gather_subset: ``bank_subset_phase``), the launch-cost phase, and
+the kernel table's rows of KERNEL (default: spgemm_bsr_blocks gather),
+every bound by this tree's rule.
+Run it once per tree in one call of the card, in turns (parent, change,
+change, parent), to compare them.
 """
 
+import functools
 import importlib.util
 import json
 import os
 import sys
 import time
+import types
 
 
 def load(path: str, name: str):
@@ -33,7 +38,7 @@ def main() -> None:
     if len(sys.argv) < 2:
         sys.exit(__doc__)
     root = os.path.abspath(sys.argv[1])
-    kernels = sys.argv[2:] or ["build_bank", "gather_subset"]
+    kernels = sys.argv[2:] or ["spgemm_bsr_blocks", "gather"]
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)  # DIR's nsparse_tpu_torch
     import torch
@@ -46,14 +51,25 @@ def main() -> None:
     card = tree.card_line()
     print(f"tree {root}: {card}", flush=True)
     s = tree.Smoke(torch, card)
+    # this tree's bounds on the other tree's calls (K9's f32 bound is the
+    # 3xTF32 one), so that both trees' rows are read against the same
+    s.bound_ms = types.MethodType(this.Smoke.bound_ms, s)
     s.cuda_lib.KERNELS.get()
-    for phase in (tree.spgemm_phase, tree.esc_layout_phases,
-                  tree.spmv_phases, tree.bsr_spgemm_phases,
-                  this.bank_subset_phase, this.launch_cost_phase):
+    phases = [tree.spgemm_phase, tree.esc_layout_phases, tree.spmv_phases,
+              tree.bsr_spgemm_phases]
+    if "spgemm_bsr_blocks" in kernels:
+        # the other tree's K9 may predate the tensor cores
+        phases.append(functools.partial(this.k9_phase, sass=False))
+    if "gather" in kernels:
+        phases.append(this.k1_phase)
+    if {"build_bank", "gather_subset"} & set(kernels):
+        phases.append(this.bank_subset_phase)
+    for phase in (*phases, this.launch_cost_phase):
         t0 = time.perf_counter()
         phase(s)
-        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "
-              "host time", flush=True)
+        name = getattr(phase, "__name__", None) or phase.func.__name__
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s host time",
+              flush=True)
     table = this.Smoke.kernel_table(s, kernels)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"tree": root, "kernels": table}))
