@@ -13,8 +13,9 @@ Phases (any failure exits non-zero before the final line):
      ``choose_spgemm_path`` must answer esc; ``spgemm_plan`` on the host
      must build the v2 form (the 1,344-row bank fits the budget), then
      ``spgemm_numeric`` on cuda:0 (K11 bank, K1 A values, K3 v2 per
-     class, the fallback pool through K2 piece mode and K12, K1, K4; no
-     run-form K2, no v1 K3); C is checked against the scipy oracle with
+     class into its slice of one merge buffer, the fallback pool through
+     one K2 piece-mode launch and K12, K1, K4; no run-form K2, no v1 K3);
+     C is checked against the scipy oracle with
      the |A||B| bound, then re-run with new values on the same plan, in
      float32 and in float64; then the same matrix in the v1 form
      (``FUSED_BANK_BUDGET = 0``: K2, K3 v1, K1, K4), whose C must equal
@@ -25,12 +26,12 @@ Phases (any failure exits non-zero before the final line):
   3b. the other ESC layouts, each C checked against scipy and re-run with
      new values in float32 and float64 on its plan, launch counts exact:
        spgemm-global            R-MAT-14, ``layout="global"``: K11 bank,
-                                K1 x3, K2 piece mode per class, K12; C
-                                equal in structure to the window C;
+                                K1 x3, K2 piece mode once over every
+                                class, K12; C equal in structure to the
+                                window C;
        spgemm-global-unaligned  R-MAT-16 (edge factor 4, seed 1), whose
                                 3,136-row bank exceeds BANK_ROWS_MAX: K11
-                                flat table, K1 x3, K2 flat mode per class,
-                                K12;
+                                flat table, K1 x3, K2 flat mode once, K12;
        spgemm-sort              R-MAT-14, ``shuffle=False``: the K5/K1/K6
                                 launches of its two gather plans (K5 once
                                 per plan), two runs equal;
@@ -89,6 +90,14 @@ Phases (any failure exits non-zero before the final line):
      and past the end among them); K1 on R-MAT-20's ELL x-shuffle and on
      the v2 path's fallback shuffle, the same three ways, beside their
      bounds and ``x[idx]``;
+  7e. K3 and K2's piece modes: K3 per class of both window forms (width,
+     windows, blocks per window, threads, shared memory, blocks per SM
+     and global scratch, in f32 and f64), equal to its plain version in
+     f64 (``torch.equal``), by CUDA events, the profiler's device time and
+     queued behind a device sleep, beside its bound and the bound of the
+     earlier design's tables, and each form summed; K2's one piece-mode
+     launch on the v2 and global paths and its one flat-mode launch on
+     R-MAT-16 the same way;
   8. launch cost: host µs per call of each step of the ctypes launch
      path alone (old and new), of K12, K6, K11, K5 and K1 through
      ``cuda_lib.launch``, of K4 through the old path (the control) and of
@@ -495,7 +504,7 @@ class Smoke:
         elif k == "scatter_tiles":
             args[0] = args[0].clone()
         elif k in ("expand_pieces", "expand_pieces_flat"):
-            args[5] = args[5].clone()
+            args[-1] = args[-1].clone()
         return args
 
     def run(self, k, fn, args):
@@ -570,27 +579,16 @@ class Smoke:
             nbytes = ids.numel() * 4 + (reads * 1024 + out.numel()) \
                 * src.element_size()
         elif k in ("expand_pieces", "expand_pieces_flat"):
-            # the piece tables, each distinct bank (or flat table) value a
-            # slot reads, the subtiles written
-            j, cuts, boffs, apv, bank, _ = args
-            sel, bidx = self.piecewise.piece_sources(
-                j, cuts, boffs, 128 if k == "expand_pieces" else 1)
-            reads = int(torch.unique(bidx[sel >= 0]).numel())
+            # the piece tables (and the class table), each distinct bank
+            # (or flat table) value a slot reads, the subtiles written
+            rows, n_sub, cuts, boffs, _, bank = piece_call(args)
+            reads = piece_reads(torch, rows, n_sub, cuts, boffs,
+                                128 if k == "expand_pieces" else 1)
             vb = bank.element_size()
-            nbytes = cuts.numel() * (8 + vb) + (reads + out.numel()) * vb
-        elif k == "fused_class_v2":
-            # the tables the v2 kernel reads (not tile_idx), the class's A
-            # values, each distinct bank value its products read, the
-            # class arena written
-            plan, bank, apv = args
-            tabs = (plan.tile_inv, plan.ext_idx, plan.entry_idx,
-                    plan.tier_idx, plan.etrips, plan.ecuts, plan.eboffs,
-                    plan.eends)
-            _, bidx, _ = self.window_fused.class_product_sources(plan)
-            reads = int(torch.unique(bidx).numel())
-            vb = bank.element_size()
-            nbytes = sum(x.numel() * 4 for x in tabs) \
-                + (apv.numel() + reads + out.numel()) * vb
+            nbytes = cuts.numel() * (8 + vb) + len(rows) * 12 \
+                + (reads + out.numel()) * vb
+        elif k in ("fused_class", "fused_class_v2"):
+            nbytes = k3_bytes(self, k, args, out)
         elif k == "runcopy_kfold":
             # the run descriptors, the K sub-runs of every run (strides of
             # at least the run's length: no value read twice), the output
@@ -800,6 +798,63 @@ class Smoke:
         return table
 
 
+def piece_call(args):
+    """(class rows, compact subtiles, cuts, boffs, apv, source table) of a
+    K2 piece-mode call: ``(PieceTables, apv, table, out)``, one launch
+    over every class, or the per-class form of trees before it, ``(J,
+    cuts, boffs, apv, table, out)``."""
+    if isinstance(args[0], int):
+        j, cuts, boffs, apv, src, _ = args
+        return ((0, j, 0),), cuts.numel() // j, cuts, boffs, apv, src
+    tables, apv, src, _ = args
+    return tables.rows, tables.n_sub, tables.cuts, tables.boffs, apv, src
+
+
+def piece_reads(torch, rows, n_sub, cuts, boffs, row_scale) -> int:
+    """Distinct source values the slots of a K2 piece-mode call read (a
+    slot takes the last piece of its subtile that starts at or before
+    it)."""
+    pos = torch.arange(1024, device=cuts.device)
+    ends = [r[0] for r in rows[1:]] + [n_sub]
+    idx = []
+    for (first, j, q0), end in zip(rows, ends):
+        n = end - first
+        c = cuts[q0: q0 + n * j].view(n, j).long()
+        sel = torch.searchsorted(c, pos.expand(n, 1024).contiguous(),
+                                 right=True) - 1
+        bo = boffs[q0: q0 + n * j].view(n, j).long().gather(
+            1, sel.clamp(min=0))
+        idx.append((bo * row_scale + pos)[sel >= 0])
+    return int(torch.unique(torch.cat(idx)).numel()) if idx else 0
+
+
+def k3_bytes(s, k, args, out, old_rule=False) -> int:
+    """The bytes one K3 call must move: the tables its design reads, its
+    products (v1) or the distinct bank values and the A values of the
+    pieces it reads (v2), the class arena written.  The extraction is
+    ``pyr_dst`` (2 bytes per pyramid value); with ``old_rule``, or on a
+    plan that predates it, the ext and entry tables of the earlier design
+    (4 bytes a slot each) and every piece-table entry."""
+    plan, vb = args[0], out.element_size()
+    old = old_rule or not hasattr(plan, "pyr_dst")
+    extract = (plan.ext_idx.numel() + plan.entry_idx.numel()) * 4 if old \
+        else plan.pyr_dst.numel() * 2
+    nbytes = extract + plan.tier_idx.numel() * 4 + out.numel() * vb
+    if k == "fused_class":
+        # the fold-slot table (tile or tile_inv) and the products
+        return nbytes + plan.slots * (4 + vb)
+    _, bidx, _ = s.window_fused.class_product_sources(plan)
+    reads = int(s.torch.unique(bidx).numel())
+    nbytes += plan.tile_inv.numel() * 4 + reads * vb
+    if old:
+        return nbytes + (plan.etrips.numel() + 3 * plan.ecuts.numel()) * 4 \
+            + args[2].numel() * vb
+    # the two ends of each window's piece range; the pieces in it (cut,
+    # end, bank row, subtile and A value)
+    pieces = int((plan.etrips[:, 1] - plan.etrips[:, 0]).sum())
+    return nbytes + plan.n_win * 8 + pieces * (16 + vb)
+
+
 def cusparse_spgemm_ms(s: Smoke, a, what: str):
     """Device ms of one cuSPARSE CSR SpGEMM C = A @ A
     (``torch.sparse_csr_tensor @ torch.sparse_csr_tensor``, the
@@ -874,10 +929,9 @@ def spgemm_phase(s: Smoke) -> None:
 
     c = s.counted(v2_run, SPGEMM_V2, "spgemm")
     # K1: the class A values, the fallback pieces' A values, the fallback
-    # pool's two shuffles; K2 piece mode once per non-empty piece class
+    # pool's two shuffles; K2 piece mode once over every piece class
     want = {"build_bank": 1, "gather": 4, "fused_class_v2": len(w.fused),
-            "expand_pieces": sum(1 for i in w.pw.ids if i.numel()),
-            "gather_tiles8": 1, "runcopy": 1}
+            "expand_pieces": 1, "gather_tiles8": 1, "runcopy": 1}
     if s.path_launches["spgemm"] != want:
         fail(f"v2 launches {s.path_launches['spgemm']}, expected {want}")
     check_c(s, c, a, "C (v2)")
@@ -922,9 +976,11 @@ def spgemm_phase(s: Smoke) -> None:
     ops_type = type(sw.KERNEL_OPS)
 
     def recorder(field, where):
-        def call(*args):
+        # K3 writes into its slice of the merge buffer (out=): the record
+        # keeps the inputs only, so each replay writes a fresh arena
+        def call(*args, **kw):
             s.calls[SPGEMM_FIELDS[field]].append((where, args))
-            return getattr(sw.KERNEL_OPS, field)(*args)
+            return getattr(sw.KERNEL_OPS, field)(*args, **kw)
         return call
 
     for where, pl in (("spgemm", plan_d), ("spgemm-v1", plan1_d)):
@@ -951,16 +1007,17 @@ def spgemm_phase(s: Smoke) -> None:
     # timed alone on the same plan
     w_d = plan_d.win
     bank, apv = sw.v2_delivery(w_d, a_d.val, a_d.val)
-    segs = sw.v2_classes(w_d, bank, apv)
-    segs.append(sw.v2_fallback(w_d, a_d.val, bank))
+    res = sw.merge_buffer(w_d, a_d.val)
+    sw.v2_classes(w_d, bank, apv, res)
+    fb_seg = sw.v2_fallback(w_d, a_d.val, bank)
     stage_ms = {
         "delivery": s.time_cuda(
             lambda: sw.v2_delivery(w_d, a_d.val, a_d.val), trials=TRIALS),
-        "classes": s.time_cuda(lambda: sw.v2_classes(w_d, bank, apv),
+        "classes": s.time_cuda(lambda: sw.v2_classes(w_d, bank, apv, res),
                                trials=TRIALS),
         "fallback": s.time_cuda(lambda: sw.v2_fallback(w_d, a_d.val, bank),
                                 trials=TRIALS),
-        "merge": s.time_cuda(lambda: sw.merge_segments(plan_d, segs),
+        "merge": s.time_cuda(lambda: sw.merge_segments(plan_d, res, fb_seg),
                              trials=TRIALS),
     }
     print(f"v2 stages [{s.name}, {s.card}]: "
@@ -998,9 +1055,9 @@ def layout_path(s: Smoke, path: str, a, plan, run, ops_run, want) -> None:
         ops_type = type(sw.KERNEL_OPS)
 
         def recorder(field):
-            def call(*args):
+            def call(*args, **kw):
                 s.calls[SPGEMM_FIELDS[field]].append((path, args))
-                return getattr(sw.KERNEL_OPS, field)(*args)
+                return getattr(sw.KERNEL_OPS, field)(*args, **kw)
             return call
 
         ops_run(ops_type(*(recorder(f) for f in ops_type._fields)))
@@ -1020,11 +1077,10 @@ def layout_path(s: Smoke, path: str, a, plan, run, ops_run, want) -> None:
 def global_launches(pw) -> dict:
     """The launches of the global slab layout's numeric phase: K11 (the
     bank, or the flat table), K1 three times (the pieces' A values, the
-    slab shuffle, the assembly), K2 once per non-empty piece class in the
+    slab shuffle, the assembly), K2 once over every piece class in the
     plan's mode, K12."""
     mode = "expand_pieces" if pw.aligned else "expand_pieces_flat"
-    return {"build_bank": 1, "gather": 3,
-            mode: sum(1 for i in pw.ids if i.numel()), "gather_tiles8": 1}
+    return {"build_bank": 1, "gather": 3, mode: 1, "gather_tiles8": 1}
 
 
 def global_phase(s: Smoke, path: str, a, plan) -> object:
@@ -1688,7 +1744,8 @@ def measure_calls(s: Smoke, k: str, label: str, calls, kernel: str,
     kernel named ``kernel...`` once): CUDA events, the profiler's device
     time (per-launch means, summed), queued behind a sleep; its bound and
     the share of it each reaches, and its library call by events and
-    queued (``lib_name``; None: no library call)."""
+    queued (``lib_name``; None: no library call).  Returns (events ms,
+    profiler ms or None, queued ms or None, bound ms)."""
     torch = s.torch
     arglists = [s.fresh(k, a) for a in calls]
     w = s.wrappers[k]
@@ -1726,6 +1783,7 @@ def measure_calls(s: Smoke, k: str, label: str, calls, kernel: str,
           f"sleep; bound {bound:.4f} ms: {share(ev_ms)} by events, "
           f"{share(dev_ms)} by the profiler, {share(queued)} queued"
           f"{lib_txt}", flush=True)
+    return ev_ms, dev_ms, queued, bound
 
 
 def bank_subset_phase(s: Smoke) -> None:
@@ -1965,6 +2023,91 @@ def k1_phase(s: Smoke) -> None:
                       "x[idx]")
 
 
+def to_f64(torch, args):
+    """A recorded call's arguments with every float tensor in float64."""
+    return [x.double() if isinstance(x, torch.Tensor)
+            and x.is_floating_point() else x for x in args]
+
+
+def k3_geometry(s: Smoke, plan, dtype) -> str:
+    """How K3 runs a class on this card: blocks per window (a cluster when
+    more than one), threads, shared memory, resident blocks per SM, and
+    whether it takes global scratch.  A tree whose K3 predates the query
+    (one 512-thread block per window, its pyramid in shared memory or in
+    global scratch past the opt-in limit) gets its rule's numbers."""
+    torch = s.torch
+    geo = getattr(s.window_fused, "launch_geometry", None)
+    if geo is not None:
+        g = geo(plan, dtype)
+        return (f"{g['cluster']} block(s) per window x {g['threads']} "
+                f"threads, {g['smem']} B shared, {g['blocks_per_sm']} "
+                "blocks per SM, scratch no")
+    el = torch.empty(0, dtype=dtype).element_size()
+    need = plan.pyr_len * el + (256 * (12 + el) if plan.expand else 0)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    scratch = need > optin
+    return (f"1 block(s) per window x 512 threads, "
+            f"{0 if scratch else plan.pyr_len * el} B shared, blocks per "
+            f"SM not measured, scratch {'yes' if scratch else 'no'}")
+
+
+def k3_k2_phase(s: Smoke) -> None:
+    """K3 (both modes) and K2's piece modes on the calls the SpGEMM paths
+    gave them.  K3 per class, v2 on the v2 path and v1 on the v1 path:
+    width, windows, its launch geometry in f32 and f64 (blocks per window,
+    threads, shared memory, blocks per SM, global scratch), equal to its
+    plain version in float64 (``torch.equal``; the kernel table holds the
+    float32 calls), and its device time by CUDA events, torch.profiler
+    and queued behind a sleep, beside its bound and the bound of the
+    earlier design's tables; then each form summed.  K2 per path and mode
+    (the v2 fallback pool and the global layout: piece mode; R-MAT-16:
+    flat mode) the same way."""
+    torch = s.torch
+
+    def equal64(k, args):
+        a64 = to_f64(torch, args)
+        if not torch.equal(s.run(k, s.wrappers[k], a64),
+                           s.run(k, s.plain[k], a64)):
+            fail(f"{k} differs from its plain version in float64")
+
+    for k, path in (("fused_class_v2", "spgemm"),
+                    ("fused_class", "spgemm-v1")):
+        calls = [a for p, a in s.calls[k] if p == path]
+        tot = np.zeros(4)
+        old = 0.0
+        for args in calls:
+            plan = args[0]
+            equal64(k, args)
+            old_ms = k3_bytes(s, k, args, s.plain[k](*args), old_rule=True) \
+                / s.bw * 1e3
+            old += old_ms
+            got = measure_calls(
+                s, k, f"K3 on {path}, class W={plan.w}: {plan.n_win} "
+                f"windows, {plan.slots} slots, lv {plan.lv}, "
+                f"{len(plan.tier_vs)} tiers; f32: "
+                f"{k3_geometry(s, plan, torch.float32)}; f64: "
+                f"{k3_geometry(s, plan, torch.float64)}; equal to its plain "
+                f"version in f64; bound of the earlier tables {old_ms:.4f} ms",
+                [args], "fused_class")
+            tot += [np.nan if v is None else v for v in got]
+        print(f"K3 {k} on {path} [{s.name}, {s.card}]: {len(calls)} "
+              f"launches, {tot[0]:.4f} ms by CUDA events, {tot[1]:.4f} ms "
+              f"by the profiler, {tot[2]:.4f} ms queued; bound {tot[3]:.4f} "
+              f"ms ({100 * tot[3] / tot[0]:.1f}% by events), the earlier "
+              f"tables' bound {old:.4f} ms", flush=True)
+    for k in ("expand_pieces", "expand_pieces_flat"):
+        for path in dict.fromkeys(p for p, _ in s.calls[k]):
+            calls = [a for p, a in s.calls[k] if p == path]
+            for args in calls:
+                equal64(k, args)
+            rows = piece_call(calls[0])[0]
+            measure_calls(
+                s, k, f"K2 on {path} ({k}): {len(calls)} launch(es); "
+                f"{len(rows) if len(calls) == 1 else len(calls)} piece "
+                f"classes, {sum(piece_call(a)[1] for a in calls)} subtiles; "
+                "equal to its plain version in f64", calls, "expand_pieces")
+
+
 def host_us(torch, fn, reps: int = LAUNCH_REPS) -> float:
     """Host µs per call of ``fn`` over ``reps`` back-to-back calls, the
     host clock around them and a closing ``torch.cuda.synchronize()``
@@ -2121,7 +2264,8 @@ def main() -> None:
 
     for phase in (spgemm_phase, esc_layout_phases, kfold_phase, spmv_phases,
                   bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,
-                  bank_subset_phase, k9_phase, k1_phase, launch_cost_phase):
+                  bank_subset_phase, k9_phase, k1_phase, k3_k2_phase,
+                  launch_cost_phase):
         t0 = time.perf_counter()
         phase(s)
         print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "

@@ -2,7 +2,8 @@
 
 SpGEMM: K1 ``shuffle.gather`` (also the ELL x-shuffle and flat_gather's
 fallback tiles), K2 ``piecewise.piecewise_expand`` (run form; piece mode
-``expand_pieces`` and flat mode ``expand_pieces_flat``), K3
+``expand_pieces`` and flat mode ``expand_pieces_flat``, one launch over
+every piece class), K3
 ``window_fused.fused_class_apply`` (v1; v2 ``fused_class_expand``), K4
 ``runcopy.runcopy`` (fixed mode; ``runcopy_kfold`` stands alone, as its
 TPU counterpart does), K11 ``piecewise.build_bank`` (the pre-rolled bank,
@@ -17,6 +18,7 @@ K9 multiplies on the tensor cores: float32 as three TF32 products per
 product (3xTF32, float32 accuracy), float64 on DMMA.
 A wrapper runs the plain version for CPU tensors; for CUDA tensors it
 launches its kernel (and adds one to its ``launches`` count) or raises.
-K1, K5, K6, K9, K11 and K12 launch through ``cuda_lib.launch``; the
-others still through ``cuda_lib.entry``, ``stream`` and ``ptr``.
+K1, K2, K3, K5, K6, K9, K11 and K12 launch through ``cuda_lib.launch``;
+K4, K7, K8 and K10 still through ``cuda_lib.entry``, ``stream`` and
+``ptr``.
 """

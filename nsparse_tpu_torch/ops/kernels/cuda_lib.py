@@ -10,7 +10,6 @@ machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 import shutil
 import threading
@@ -37,14 +36,11 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "nsp_gather": [_P, _I64, _P, _P, _I64, _P],
     "nsp_expand": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
-    "nsp_expand_pieces": [_P, _P, _P, _P, _I64, _I32, _I32, _P, _P],
-    "nsp_fused_class": [
-        _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-        ctypes.POINTER(_I32), _P, _I64, _P,
-    ],
+    "nsp_expand_pieces": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P],
+    "nsp_fused_class": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     "nsp_fused_class_v2": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-        ctypes.POINTER(_I32), _P, _I64, _I32, _I32, _P,
+        _I32, _I32, _P,
     ],
     "nsp_runcopy": [_P, _P, _P, _P, _I64, _P, _I64, _P],
     "nsp_gather_subset": [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P],
@@ -93,8 +89,9 @@ class _KernelLib:
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             libs = list(pool.map(build, SOURCES))
         types_of = {"nsp_error_string": ([ctypes.c_int], ctypes.c_char_p),
-                    "nsp_max_smem_optin": ([ctypes.POINTER(_I32)],
-                                           ctypes.c_int)}
+                    "nsp_fused_class_geom": (
+                        [_I32, _I32, _I64, _I32, _I32, _I32,
+                         ctypes.POINTER(_I32)], ctypes.c_int)}
         for name, argtypes in _SIGNATURES.items():
             for suffix in ("_f32",) if name in _F32_ONLY else ("_f32", "_f64"):
                 types_of[name + suffix] = (argtypes, ctypes.c_int)
@@ -131,17 +128,6 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = KERNELS.get().nsp_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
-
-
-@functools.lru_cache(maxsize=None)
-def max_smem_optin(device_index: int) -> int:
-    """Dynamic shared memory a block may opt in to on a device (queried
-    once per device)."""
-    n = _I32(0)
-    with torch.cuda.device(device_index):
-        rc = KERNELS.get().nsp_max_smem_optin(ctypes.byref(n))
-    check(rc, "smem query")
-    return int(n.value)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -187,8 +173,8 @@ def resolve(name: str, dtype: torch.dtype):
 def validate(what: str, *args) -> tuple[int, torch.dtype | None, list]:
     """(device index, value dtype, ``args`` with each tensor replaced by
     its data pointer) for C arguments ``args``; the tensors among them
-    must be contiguous on one CUDA device, indices int32 and values of
-    one float dtype, or this raises."""
+    must be contiguous on one CUDA device, indices int32 (or int16) and
+    values of one float dtype, or this raises."""
     device, dtype, one_device, c_args = None, None, True, []
     for t in args:
         if not isinstance(t, torch.Tensor):
@@ -198,9 +184,10 @@ def validate(what: str, *args) -> tuple[int, torch.dtype | None, list]:
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
         dt = t.dtype  # dtypes are singletons: compared by identity
-        if dt is not torch.int32 and dt is not dtype:
+        if dt is not torch.int32 and dt is not dtype and dt is not torch.int16:
             if not dt.is_floating_point:
-                raise ValueError(f"{what}: index arrays must be int32")
+                raise ValueError(f"{what}: index arrays must be int32 or "
+                                 "int16")
             if dtype is not None:
                 raise TypeError(f"{what}: values must share one dtype, got "
                                 f"{dtype} and {dt}")

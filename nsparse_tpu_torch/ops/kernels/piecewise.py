@@ -10,8 +10,9 @@ expand products ``a.val[e] * b.val[j]``:
   it, the global slab layout its whole product arena): per 1024-slot
   subtile, a J-budget table of pieces ``(cut, source code)`` whose
   per-piece A values come from one K1 gather; K2's piece mode writes a
-  class-major compact buffer, and K12 (``gather_tiles8``) restores arena
-  order.  Run-dense subtiles (more pieces than the largest budget, 128:
+  class-major compact buffer in one launch over every class (the classes'
+  tables merged, :class:`PieceTables`), and K12 (``gather_tiles8``)
+  restores arena order.  Run-dense subtiles (more pieces than the largest budget, 128:
   at most 128 runs of 8 or more products start in a subtile, so it takes
   runs with no products, from B rows with no entries) go element-wise, as
   in the JAX plan: K1 gathers of their table and A values, and K6
@@ -57,6 +58,7 @@ BANK_K = kernelgen.BANK_K
 BANK_ROWS_MAX = kernelgen.BANK_ROWS_MAX
 J_CLASSES = kernelgen.PW_J_CLASSES
 MAX_J = 128                 # K2 piece mode's piece table (csrc/expand.cu)
+MAX_CLASSES = 8             # K2 piece mode's class table (csrc/expand.cu)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -237,6 +239,63 @@ build_bank.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
+class PieceTables:
+    """The piece tables of every class of a plan, merged for one K2
+    launch.
+
+    Attributes:
+      rows: per class with subtiles, ``(first compact subtile, J, first
+        piece)`` on the host.
+      cls: (len(rows), 3) int32, the same rows for the kernel.
+      cuts / boffs: the classes' piece tables concatenated (class c's
+        subtile s has its J pieces from ``first piece + s * J``).
+      n_sub: compact subtiles, all classes.
+    """
+
+    rows: Tuple[Tuple[int, int, int], ...] = dataclasses.field(
+        metadata={"host": True})
+    cls: torch.Tensor
+    cuts: torch.Tensor
+    boffs: torch.Tensor
+    n_sub: int
+
+    def to(self, device) -> "PieceTables":
+        return to_device(self, device)
+
+    def classes(self):
+        """Per row: (J, first compact subtile, subtiles, first piece)."""
+        ends = [r[0] for r in self.rows[1:]] + [self.n_sub]
+        return [(j, first, end - first, q0)
+                for (first, j, q0), end in zip(self.rows, ends)]
+
+
+def merge_piece_tables(j_budgets, cuts, boffs) -> PieceTables:
+    """:class:`PieceTables` from per-class tables (budget J, cuts, boffs
+    of whole J-piece subtiles, in compact order); classes with no
+    subtiles get no row."""
+    rows, first, q0 = [], 0, 0
+    for j, c, b in zip(j_budgets, cuts, boffs):
+        j, n = int(j), int(np.asarray(c).size)
+        if not 0 < j <= MAX_J or n % j or np.asarray(b).size != n:
+            raise ValueError(f"piece tables of budget {j} (at most {MAX_J}) "
+                             "must be whole subtiles of one length")
+        if n:
+            rows.append((first, j, q0))
+        first += n // j
+        q0 += n
+    if len(rows) > MAX_CLASSES:
+        raise ValueError(f"{len(rows)} piece classes exceed {MAX_CLASSES}")
+
+    def cat(parts):
+        parts = [np.asarray(x, np.int64).reshape(-1) for x in parts]
+        return t(np.concatenate(parts) if parts else np.zeros(0, np.int64))
+
+    return PieceTables(
+        rows=tuple(rows), cls=t(np.asarray(rows, np.int64).reshape(-1, 3)),
+        cuts=cat(cuts), boffs=cat(boffs), n_sub=int(first))
+
+
+@dataclasses.dataclass(frozen=True)
 class PiecewisePlan:
     """Piece tables of the expansion of a product arena ``[0, n)`` (zero
     beyond ``n``, padded to ``n_pad``) from the 8-aligned B table.
@@ -260,6 +319,8 @@ class PiecewisePlan:
       n, n_pad, nnz_a: arena, padded arena and ``a.val`` sizes; nnz_b:
         the 8-aligned B table's length; aligned: the mode; bank_rows: the
         bank the aligned mode reads (0 in the unaligned mode).
+      pieces: ``cuts`` and ``boffs`` of every class merged for K2's one
+        launch (derived; the per-class tuples are the JAX plan's).
     """
 
     ids: Tuple[torch.Tensor, ...]
@@ -277,6 +338,7 @@ class PiecewisePlan:
     nnz_b: int
     aligned: bool
     bank_rows: int
+    pieces: PieceTables
 
     @property
     def n_compact(self) -> int:
@@ -438,85 +500,94 @@ def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
         apv_splits=tuple(splits),
         n=int(n), n_pad=int(n_pad), nnz_a=int(nnz_a), nnz_b=int(nnz_b),
         aligned=bool(aligned), bank_rows=int(rows_tot),
+        pieces=merge_piece_tables(J_CLASSES, cuts_l, boffs_l),
     )
 
 
-def _check_pieces(j_budget: int, cuts, boffs, apv, bank, out):
-    if not 0 < j_budget <= MAX_J or cuts.numel() % j_budget \
-            or boffs.numel() != cuts.numel() or apv.numel() != cuts.numel():
-        raise ValueError(f"piece tables of budget {j_budget} (at most "
-                         f"{MAX_J}) must be whole subtiles of one length")
-    n = cuts.numel() // j_budget
-    if out.numel() != n * TILE:
-        raise ValueError(f"{out.numel()} output slots for {n} subtiles")
-    if apv.dtype != bank.dtype or out.dtype != bank.dtype:
-        raise TypeError("apv, bank and out must share a dtype")
+def _check_pieces(tables: PieceTables, apv, src, out):
+    if apv.numel() != tables.cuts.numel():
+        raise ValueError(f"{apv.numel()} A values for "
+                         f"{tables.cuts.numel()} pieces")
+    if out.numel() != tables.n_sub * TILE:
+        raise ValueError(f"{out.numel()} output slots for {tables.n_sub} "
+                         "subtiles")
+    if apv.dtype != src.dtype or out.dtype != src.dtype:
+        raise TypeError("apv, the table and out must share a dtype")
 
 
-def piece_sources(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
-                  row_scale: int = LANES):
-    """Per slot of each subtile of one class: its piece (the last whose cut
-    is <= the slot, -1 if none) and its flat source index ``code *
-    row_scale + slot`` (row_scale 128: bank-row codes; 1: flat offsets)."""
-    n = cuts.numel() // j_budget
-    pos = torch.arange(TILE, device=cuts.device)
-    c = cuts.view(n, j_budget).long()
-    sel = torch.searchsorted(c, pos.expand(n, TILE).contiguous(),
-                             right=True) - 1
-    bo = boffs.view(n, j_budget).long().gather(1, sel.clamp(min=0))
-    return sel, bo * row_scale + pos
+def piece_sources(tables: PieceTables, row_scale: int = LANES):
+    """Per slot of each compact subtile: its piece (an index into the
+    merged tables: the last piece of its subtile whose cut is <= the slot,
+    -1 if none) and its flat source index ``code * row_scale + slot``
+    (row_scale 128: bank-row codes; 1: flat offsets)."""
+    dev = tables.cuts.device
+    pos = torch.arange(TILE, device=dev)
+    sel, sidx = [], []
+    for j, _, n, q0 in tables.classes():
+        c = tables.cuts[q0 : q0 + n * j].view(n, j).long()
+        s = torch.searchsorted(c, pos.expand(n, TILE).contiguous(),
+                               right=True) - 1
+        bo = tables.boffs[q0 : q0 + n * j].view(n, j).long().gather(
+            1, s.clamp(min=0))
+        base = q0 + torch.arange(n, device=dev)[:, None] * j
+        sel.append(torch.where(s >= 0, base + s, -1))
+        sidx.append(bo * row_scale + pos)
+    if not sel:
+        empty = torch.zeros(0, TILE, dtype=torch.long, device=dev)
+        return empty, empty
+    return torch.cat(sel), torch.cat(sidx)
 
 
-def _pieces_plain(j_budget, cuts, boffs, apv, src, out, row_scale):
-    _check_pieces(j_budget, cuts, boffs, apv, src, out)
-    n = cuts.numel() // j_budget
-    if not n:
+def _pieces_plain(tables, apv, src, out, row_scale):
+    _check_pieces(tables, apv, src, out)
+    if not tables.n_sub:
         return out
-    sel, sidx = piece_sources(j_budget, cuts, boffs, row_scale)
-    av = apv.view(n, j_budget).gather(1, sel.clamp(min=0))
-    out.view(n, TILE)[:] = torch.where(sel >= 0, src.reshape(-1)[sidx] * av,
-                                       0)
+    sel, sidx = piece_sources(tables, row_scale)
+    out.view(tables.n_sub, TILE)[:] = torch.where(
+        sel >= 0, src.reshape(-1)[sidx] * apv[sel.clamp(min=0)], 0)
     return out
 
 
-def expand_pieces_plain(j_budget: int, cuts: torch.Tensor,
-                        boffs: torch.Tensor, apv: torch.Tensor,
+def expand_pieces_plain(tables: PieceTables, apv: torch.Tensor,
                         bank: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K2's piece mode (fills ``out``)."""
-    return _pieces_plain(j_budget, cuts, boffs, apv, bank, out, LANES)
+    """Plain PyTorch version of K2's piece mode (fills ``out``), class by
+    class."""
+    return _pieces_plain(tables, apv, bank, out, LANES)
 
 
-def expand_pieces_flat_plain(j_budget: int, cuts: torch.Tensor,
-                             boffs: torch.Tensor, apv: torch.Tensor,
+def expand_pieces_flat_plain(tables: PieceTables, apv: torch.Tensor,
                              table: torch.Tensor,
                              out: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2's flat mode (fills ``out``)."""
-    return _pieces_plain(j_budget, cuts, boffs, apv, table, out, 1)
+    return _pieces_plain(tables, apv, table, out, 1)
 
 
-def expand_pieces(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
-                  apv: torch.Tensor, bank: torch.Tensor,
+def _launch_pieces(what: str, tables: PieceTables, apv, src, out,
+                   row_scale: int) -> bool:
+    """K2's piece kernel once over every class; False when there is no
+    subtile (nothing launched)."""
+    _check_pieces(tables, apv, src, out)
+    if not tables.n_sub:
+        return False
+    cuda_lib.launch(what, "nsp_expand_pieces", src, apv, tables.cuts,
+                    tables.boffs, tables.cls, len(tables.rows), tables.n_sub,
+                    row_scale, out)
+    return True
+
+
+def expand_pieces(tables: PieceTables, apv: torch.Tensor, bank: torch.Tensor,
                   out: torch.Tensor) -> torch.Tensor:
-    """K2 piece mode: one class's subtiles into ``out`` (its slice of the
-    compact buffer).  Slot p of subtile s takes the last of its
-    ``j_budget`` pieces whose cut is <= p, ``bank[boff * 128 + p] *
-    apv[piece]``, and 0 where no piece starts at or before p.
+    """K2 piece mode: every class's subtiles into ``out`` (the compact
+    buffer), in one launch.  Slot p of a subtile takes the last of its J
+    pieces whose cut is <= p, ``bank[boff * 128 + p] * apv[piece]``, and 0
+    where no piece starts at or before p.
 
     CPU tensors take :func:`expand_pieces_plain`; CUDA tensors launch the
     kernel (``csrc/expand.cu``) or raise.
     """
     if out.device.type == "cpu":
-        return expand_pieces_plain(j_budget, cuts, boffs, apv, bank, out)
-    _check_pieces(j_budget, cuts, boffs, apv, bank, out)
-    cuda_lib.require_cuda("expand_pieces", bank, apv, cuts, boffs, out)
-    n = cuts.numel() // j_budget
-    if n:
-        fn = cuda_lib.entry("nsp_expand_pieces", out.dtype)
-        with torch.cuda.device(out.device):
-            rc = fn(cuda_lib.ptr(bank), cuda_lib.ptr(apv), cuda_lib.ptr(cuts),
-                    cuda_lib.ptr(boffs), n, j_budget, LANES,
-                    cuda_lib.ptr(out), cuda_lib.stream(out))
-        cuda_lib.check(rc, "expand_pieces")
+        return expand_pieces_plain(tables, apv, bank, out)
+    if _launch_pieces("expand_pieces", tables, apv, bank, out, LANES):
         expand_pieces.launches += 1
     return out
 
@@ -524,8 +595,7 @@ def expand_pieces(j_budget: int, cuts: torch.Tensor, boffs: torch.Tensor,
 expand_pieces.launches = 0
 
 
-def expand_pieces_flat(j_budget: int, cuts: torch.Tensor,
-                       boffs: torch.Tensor, apv: torch.Tensor,
+def expand_pieces_flat(tables: PieceTables, apv: torch.Tensor,
                        table: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """K2 flat mode (the unaligned piece mode): as :func:`expand_pieces`,
     but slot p of a piece reads ``table[boff + p]`` from the flat table
@@ -535,13 +605,8 @@ def expand_pieces_flat(j_budget: int, cuts: torch.Tensor,
     the kernel (``csrc/expand.cu``, row scale 1) or raise.
     """
     if out.device.type == "cpu":
-        return expand_pieces_flat_plain(j_budget, cuts, boffs, apv, table,
-                                        out)
-    _check_pieces(j_budget, cuts, boffs, apv, table, out)
-    n = cuts.numel() // j_budget
-    if n:
-        cuda_lib.launch("expand_pieces_flat", "nsp_expand_pieces", table, apv,
-                        cuts, boffs, n, j_budget, 1, out)
+        return expand_pieces_flat_plain(tables, apv, table, out)
+    if _launch_pieces("expand_pieces_flat", tables, apv, table, out, 1):
         expand_pieces_flat.launches += 1
     return out
 
@@ -564,11 +629,11 @@ def expand_from_bank(plan: PiecewisePlan, a_val: torch.Tensor,
                      pieces_flat=expand_pieces_flat,
                      scatter=gather_tiles.scatter_tiles) -> torch.Tensor:
     """The (n_pad,) product arena of a :class:`PiecewisePlan`: per-piece A
-    values (K1), each class's pieces into the class-major compact buffer
-    (K2 piece mode from the bank, or flat mode from the flat table; both
-    from :func:`build_table`), then arena order (K12); run-dense subtiles
-    element-wise (K1 twice, K6).  The kernel arguments let a caller pass
-    their plain versions."""
+    values (K1), every class's pieces into the class-major compact buffer
+    in one K2 launch (piece mode from the bank, or flat mode from the flat
+    table; both from :func:`build_table`), then arena order (K12);
+    run-dense subtiles element-wise (K1 twice, K6).  The kernel arguments
+    let a caller pass their plain versions."""
     if a_val.numel() < plan.nnz_a:
         raise ValueError("a.val shorter than the plan's nnz")
     if a_val.dtype != bank.dtype:
@@ -581,14 +646,7 @@ def expand_from_bank(plan: PiecewisePlan, a_val: torch.Tensor,
     apv = gather(a_val, plan.apv_idx)
     compact = torch.empty(plan.n_compact * TILE, dtype=a_val.dtype,
                           device=a_val.device)
-    cbase = 0
-    for J, ids, cuts, boffs, (lo, hi) in zip(
-            J_CLASSES, plan.ids, plan.cuts, plan.boffs, plan.apv_splits):
-        n_sub = int(ids.shape[0])
-        if n_sub:
-            run(J, cuts, boffs, apv[lo:hi], bank,
-                compact[cbase * TILE : (cbase + n_sub) * TILE])
-        cbase += n_sub
+    run(plan.pieces, apv, bank, compact)
     arena = tiles8(compact, plan.arena_src)
     if plan.fb_ids.numel():
         # copy 0 of the bank, like the flat table, is the 8-aligned table
@@ -620,21 +678,11 @@ def piecewise_expand(plan, a_val: torch.Tensor, b_val: torch.Tensor,
     if a_val.device.type == "cpu":
         return expand_plain(plan, a_val, b_val)
     _check_values(plan, a_val, b_val)
-    cuda_lib.require_cuda(
-        "piecewise_expand", a_val, b_val, plan.run_start, plan.b_start,
-        plan.live_len, plan.aidx,
-    )
     out = torch.empty(plan.n, dtype=a_val.dtype, device=a_val.device)
     if plan.n_runs:
-        fn = cuda_lib.entry("nsp_expand", a_val.dtype)
-        with torch.cuda.device(a_val.device):
-            rc = fn(
-                cuda_lib.ptr(a_val), cuda_lib.ptr(b_val),
-                cuda_lib.ptr(plan.run_start), cuda_lib.ptr(plan.b_start),
-                cuda_lib.ptr(plan.live_len), cuda_lib.ptr(plan.aidx),
-                plan.n_runs, cuda_lib.ptr(out), cuda_lib.stream(a_val),
-            )
-        cuda_lib.check(rc, "piecewise_expand")
+        cuda_lib.launch("piecewise_expand", "nsp_expand", a_val, b_val,
+                        plan.run_start, plan.b_start, plan.live_len,
+                        plan.aidx, plan.n_runs, out)
         piecewise_expand.launches += 1
     return out
 

@@ -21,6 +21,11 @@ Two modes, as in the JAX package:
   straight to its fold slot through the inverse permutation
   (``tile_inv``, a table derived on the host), so the window's products
   never reach device memory.
+
+The kernel reads the extraction as one table composed on the host,
+``pyr_dst``: for each pyramid value, the output slot that reads it (-1:
+none); the plan keeps ``ext_idx`` and ``entry_idx`` as the JAX plan
+holds them.
 """
 
 from __future__ import annotations
@@ -37,8 +42,7 @@ from nsparse_tpu_torch.ops.kernels.piecewise import BANK_K, LANES, TILE
 from nsparse_tpu_torch.utils.device import int32_tensor as t
 from nsparse_tpu_torch.utils.device import to_device
 
-MAX_TIERS = 8     # the kernel's tier table (csrc/fused_class.cu)
-MAX_PIECES = 256  # v2: pieces of one subtile the kernel stages at once
+MAX_WIDTH = 32768   # the kernel's int16 output slots (csrc/fused_class.cu)
 
 
 def level_widths(w: int, lv: int, tier_vs) -> Tuple[int, ...]:
@@ -85,19 +89,29 @@ class FusedClassPlan:
       ext_idx: (slots,) int32 window-local level-pyramid index of each E
         slot's total (-1 = zero).
       entry_idx: (slots,) int32 window-local E slot of each output slot.
+      pyr_dst: (n_win * pyr_len,) int16, per window and pyramid value, the
+        window-local output slot whose ``ext_idx[entry_idx[i]]`` names it
+        (-1: no slot reads it) — the extraction the kernel runs, derived.
       w: window width; slots: class slots (``n_win * w``); lv: fold levels
         before the tiers; tier_vs: tier arena widths.
       v2 only (None / 0 in v1): ``tile_inv`` (slots,) int32, the fold slot
-        of each window-local product (the inverse of ``tile_idx``), and
-        the :class:`ClassPieces` tables ``etrips`` (n_sub, 2), ``ecuts``,
+        of each window-local product (the inverse of ``tile_idx``,
+        derived), and the :class:`ClassPieces` tables ``etrips`` (n_sub,
+        2), ``ecuts``,
         ``eboffs``, ``eends``, with ``j2_cap``, ``blk``, ``apv_lo``,
-        ``apv_hi`` and ``bank_rows``.
+        ``apv_hi`` and ``bank_rows``; ``esub`` (n_steps * j2_cap,) int32,
+        each piece's window-local subtile (derived; 0 for table pads).
+
+    The kernel stores no pyramid, so no class takes global scratch: a
+    window whose F0 does not fit a cluster of 8 blocks' shared memory is
+    refused at launch.
     """
 
     tile_idx: torch.Tensor
     tier_idx: torch.Tensor
     ext_idx: torch.Tensor
     entry_idx: torch.Tensor
+    pyr_dst: torch.Tensor
     w: int
     slots: int
     lv: int
@@ -107,6 +121,7 @@ class FusedClassPlan:
     ecuts: torch.Tensor | None = None
     eboffs: torch.Tensor | None = None
     eends: torch.Tensor | None = None
+    esub: torch.Tensor | None = None
     j2_cap: int = 0
     blk: int = 0
     apv_lo: int = 0
@@ -130,10 +145,13 @@ class FusedClassPlan:
         return to_device(self, device)
 
 
-def _check_pieces(pc: ClassPieces, w: int, slots: int) -> None:
+def _check_pieces(pc: ClassPieces, w: int, slots: int) -> np.ndarray:
     """The v2 tables of a class: each subtile's pieces lie inside its
     step's region, ascend and do not overlap, ``0 <= cut <= end <= 1024``,
-    and every piece with slots reads rows inside the bank."""
+    every piece with slots reads rows inside the bank, and a window's
+    subtiles hold consecutive pieces (the kernel walks a window's pieces
+    as one range).  Returns each table entry's window-local subtile
+    (``esub``; 0 for entries no subtile holds)."""
     n_sub = slots // TILE
     if w % TILE or pc.blk % w or slots % pc.blk:
         raise ValueError(f"steps of {pc.blk} slots do not tile windows of "
@@ -150,8 +168,6 @@ def _check_pieces(pc: ClassPieces, w: int, slots: int) -> None:
     hi = np.asarray(pc.etrips[:, 1], np.int64)
     if not ((lo >= 0) & (lo <= hi) & (hi <= pc.j2_cap)).all():
         raise ValueError("v2 pieces leave their step's region")
-    if (hi - lo > MAX_PIECES).any():
-        raise ValueError(f"a subtile holds more than {MAX_PIECES} pieces")
     cnt = hi - lo
     s = np.repeat(np.arange(n_sub, dtype=np.int64), cnt)
     k = np.arange(int(cnt.sum()), dtype=np.int64) - np.repeat(
@@ -169,6 +185,14 @@ def _check_pieces(pc: ClassPieces, w: int, slots: int) -> None:
     if not ((code[used] >= 0) & (code[used] * LANES + end[used]
                                  <= BANK_K * pc.bank_rows * LANES)).all():
         raise ValueError("v2 piece reads a bank row outside the bank")
+    n_sub_w = w // TILE
+    inner = np.flatnonzero(np.arange(1, n_sub) % n_sub_w != 0)
+    if (lo[inner + 1] != hi[inner]).any():
+        raise ValueError("v2 pieces of a window's subtiles are not "
+                         "consecutive")
+    esub = np.zeros(size, np.int64)
+    esub[pj] = s % n_sub_w
+    return esub
 
 
 def build_fused_plan(w: int, slots: int, lv: int, tier_vs, tile_idx, tier_idx,
@@ -181,13 +205,15 @@ def build_fused_plan(w: int, slots: int, lv: int, tier_vs, tile_idx, tier_idx,
     sources in ``[0, V)``, pyramid indices in ``[0, pyr_len)`` (or -1).
     ``pieces`` makes a v2 plan: its tables are checked, and the tile
     permutation must be one in every window (its inverse is derived).
+    No two output slots may read one pyramid value (``pyr_dst``, the
+    composed extraction, is derived), and ``w`` is at most MAX_WIDTH.
     """
     tier_vs = tuple(int(v) for v in tier_vs)
     n_win = slots // w
     if slots % w:
         raise ValueError(f"{slots} class slots not a multiple of {w}")
-    if len(tier_vs) > MAX_TIERS:
-        raise ValueError(f"{len(tier_vs)} tiers exceed {MAX_TIERS}")
+    if w > MAX_WIDTH:
+        raise ValueError(f"windows of {w} slots exceed {MAX_WIDTH}")
     width = w >> lv
     for v, idx in zip(tier_vs, tier_idx):
         if v != 2 * width:
@@ -208,7 +234,7 @@ def build_fused_plan(w: int, slots: int, lv: int, tier_vs, tile_idx, tier_idx,
 
     v2 = {}
     if pieces is not None:
-        _check_pieces(pieces, w, slots)
+        esub = _check_pieces(pieces, w, slots)
         tile = np.asarray(tile_idx, np.int64)
         win0 = np.arange(slots, dtype=np.int64) // w * w
         inv = np.full(slots, -1, np.int64)
@@ -217,7 +243,7 @@ def build_fused_plan(w: int, slots: int, lv: int, tier_vs, tile_idx, tier_idx,
             raise ValueError("v2 tile table is not a permutation per window")
         v2 = dict(
             tile_inv=t(inv), etrips=t(pieces.etrips), ecuts=t(pieces.ecuts),
-            eboffs=t(pieces.eboffs), eends=t(pieces.eends),
+            eboffs=t(pieces.eboffs), eends=t(pieces.eends), esub=t(esub),
             j2_cap=int(pieces.j2_cap), blk=int(pieces.blk),
             apv_lo=int(pieces.apv_lo), apv_hi=int(pieces.apv_hi),
             bank_rows=int(pieces.bank_rows),
@@ -225,9 +251,26 @@ def build_fused_plan(w: int, slots: int, lv: int, tier_vs, tile_idx, tier_idx,
     cat = np.concatenate(tier_idx) if tier_idx else np.zeros(0, np.int32)
     return FusedClassPlan(
         tile_idx=t(tile_idx), tier_idx=t(cat), ext_idx=t(ext_idx),
-        entry_idx=t(entry_idx), w=int(w), slots=int(slots), lv=int(lv),
-        tier_vs=tier_vs, **v2,
+        entry_idx=t(entry_idx),
+        pyr_dst=_pyr_dst(np.asarray(ext_idx, np.int64),
+                         np.asarray(entry_idx, np.int64), w, slots, pyr_len),
+        w=int(w), slots=int(slots), lv=int(lv), tier_vs=tier_vs, **v2,
     )
+
+
+def _pyr_dst(ext: np.ndarray, entry: np.ndarray, w: int, slots: int,
+             pyr_len: int) -> torch.Tensor:
+    """The composed extraction, inverted: per window and pyramid value,
+    the output slot i with ``ext[entry[i]]`` equal to it, else -1."""
+    win = np.arange(slots, dtype=np.int64) // w
+    src = ext[win * w + entry]
+    read = src >= 0
+    key = win[read] * pyr_len + src[read]
+    dst = np.full(slots // w * pyr_len, -1, np.int16)
+    dst[key] = (np.arange(slots, dtype=np.int64) - win * w)[read]
+    if np.count_nonzero(dst >= 0) != key.size:
+        raise ValueError("two output slots read one pyramid value")
+    return torch.from_numpy(dst)
 
 
 def _reduce_plain(plan: FusedClassPlan, cur: torch.Tensor) -> torch.Tensor:
@@ -248,10 +291,12 @@ def _reduce_plain(plan: FusedClassPlan, cur: torch.Tensor) -> torch.Tensor:
             cur = cur[:, :half] + cur[:, half:]
             levels.append(cur)
     pyr = torch.cat(levels, 1)
-    ext = plan.ext_idx.reshape(n_win, w).long()
-    src = torch.gather(ext, 1, plan.entry_idx.reshape(n_win, w).long())
-    out = torch.where(src >= 0, torch.gather(pyr, 1, src.clamp(min=0)), 0)
-    return out.reshape(-1)
+    dst = plan.pyr_dst.reshape(n_win, -1).long()
+    read = dst >= 0
+    slot = (torch.arange(n_win, device=dst.device)[:, None] * w + dst)[read]
+    out = torch.zeros(n_win * w, dtype=pyr.dtype, device=pyr.device)
+    out[slot] = pyr[read]
+    return out
 
 
 def class_product_sources(plan: FusedClassPlan):
@@ -298,43 +343,53 @@ def _check_v2_args(plan: FusedClassPlan, bank, apv) -> None:
 
 def fused_class_plain(plan: FusedClassPlan, x: torch.Tensor | None = None,
                       bank: torch.Tensor | None = None,
-                      apv: torch.Tensor | None = None) -> torch.Tensor:
+                      apv: torch.Tensor | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K3, in both modes (the JAX tile
-    permutation and ``_fused_reference``, with window-local indices)."""
+    permutation and ``_fused_reference``, with window-local indices, the
+    extraction through ``pyr_dst``); into ``out`` when given."""
     if plan.expand:
         _check_v2_args(plan, bank, apv)
         x = expand_class_plain(plan, bank, apv)
     tile = plan.tile_idx.reshape(plan.n_win, plan.w).long()
-    return _reduce_plain(
+    res = _reduce_plain(
         plan, torch.gather(x[: plan.slots].reshape(plan.n_win, plan.w), 1,
                            tile))
+    if out is None:
+        return res
+    _check_out(plan, res.dtype, res.device, out)
+    return out.copy_(res)
 
 
 def fused_class_expand_plain(plan: FusedClassPlan, bank: torch.Tensor,
-                             apv: torch.Tensor) -> torch.Tensor:
+                             apv: torch.Tensor,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K3 v2 (:func:`fused_class_expand`)."""
-    return fused_class_plain(plan, None, bank, apv)
+    return fused_class_plain(plan, None, bank, apv, out)
 
 
-def _scratch(plan: FusedClassPlan, dtype, device, extra: int = 0):
-    """None when the window's pyramid (plus ``extra`` bytes of static
-    shared memory) fits the block's shared memory, else a global scratch
-    buffer of one pyramid per window."""
-    el = torch.empty(0, dtype=dtype).element_size()
-    if plan.pyr_len * el + extra <= cuda_lib.max_smem_optin(device.index):
-        return None
-    return torch.empty(plan.n_win * plan.pyr_len, dtype=dtype, device=device)
+def _check_out(plan: FusedClassPlan, dtype, device, out) -> None:
+    if out.shape != (plan.slots,) or out.dtype != dtype \
+            or out.device != device:
+        raise ValueError(f"out must be ({plan.slots},) {dtype} on {device}, "
+                         f"got {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}")
 
 
-def _tier_widths(plan: FusedClassPlan):
-    return (ctypes.c_int * max(len(plan.tier_vs), 1))(*plan.tier_vs)
+def _class_out(plan: FusedClassPlan, like: torch.Tensor, out):
+    if out is None:
+        return torch.empty(plan.slots, dtype=like.dtype, device=like.device)
+    _check_out(plan, like.dtype, like.device, out)
+    return out
 
 
 def fused_class_expand(plan: FusedClassPlan, bank: torch.Tensor,
-                       apv: torch.Tensor) -> torch.Tensor:
+                       apv: torch.Tensor,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """K3 v2: the (slots,) entry-ordered class arena of a v2 class, its
     products formed in the kernel from ``bank`` and ``apv`` (the class's
-    slice of the per-piece A values).
+    slice of the per-piece A values); written into ``out`` (the class's
+    slice of a merge buffer) when given.
 
     CPU tensors take :func:`fused_class_expand_plain`; CUDA tensors launch
     the kernel (``csrc/fused_class.cu``) or raise.
@@ -343,33 +398,16 @@ def fused_class_expand(plan: FusedClassPlan, bank: torch.Tensor,
         raise ValueError("fused_class_expand needs a v2 plan")
     _check_v2_args(plan, bank, apv)
     if bank.device.type == "cpu":
-        return fused_class_expand_plain(plan, bank, apv)
-    cuda_lib.require_cuda(
-        "fused_class_expand", bank, apv, plan.etrips, plan.ecuts,
-        plan.eboffs, plan.eends, plan.tile_inv, plan.tier_idx, plan.ext_idx,
-        plan.entry_idx,
-    )
-    out = torch.empty(plan.slots, dtype=bank.dtype, device=bank.device)
-    if not plan.slots:
-        return out
-    with torch.cuda.device(bank.device):
-        el = bank.element_size()
-        scratch = _scratch(plan, bank.dtype, bank.device,
-                           MAX_PIECES * (12 + el))
-        rc = cuda_lib.entry("nsp_fused_class_v2", bank.dtype)(
-            cuda_lib.ptr(bank), cuda_lib.ptr(apv), cuda_lib.ptr(plan.etrips),
-            cuda_lib.ptr(plan.ecuts), cuda_lib.ptr(plan.eboffs),
-            cuda_lib.ptr(plan.eends), cuda_lib.ptr(plan.tile_inv),
-            cuda_lib.ptr(out), cuda_lib.ptr(plan.ext_idx),
-            cuda_lib.ptr(plan.entry_idx), cuda_lib.ptr(plan.tier_idx),
-            plan.n_win, plan.w, plan.lv, len(plan.tier_vs),
-            _tier_widths(plan),
-            None if scratch is None else cuda_lib.ptr(scratch),
-            plan.pyr_len, plan.blk // TILE, plan.j2_cap,
-            cuda_lib.stream(bank),
-        )
-    cuda_lib.check(rc, "fused_class_expand")
-    fused_class_expand.launches += 1
+        return fused_class_expand_plain(plan, bank, apv, out)
+    out = _class_out(plan, bank, out)
+    if plan.slots:
+        cuda_lib.launch(
+            "fused_class_expand", "nsp_fused_class_v2", bank, apv,
+            plan.etrips, plan.ecuts, plan.eboffs, plan.eends, plan.esub,
+            plan.tile_inv, plan.pyr_dst, plan.tier_idx, out, plan.n_win,
+            plan.w, plan.lv, len(plan.tier_vs), plan.blk // TILE,
+            plan.j2_cap)
+        fused_class_expand.launches += 1
     return out
 
 
@@ -378,42 +416,46 @@ fused_class_expand.launches = 0
 
 def fused_class_apply(plan: FusedClassPlan, x: torch.Tensor | None = None,
                       bank: torch.Tensor | None = None,
-                      apv: torch.Tensor | None = None) -> torch.Tensor:
-    """K3: the (slots,) entry-ordered class arena.  v1 (``plan.expand``
-    false): from the class's products ``x``, in arena order.  v2: from
-    ``bank`` and ``apv`` (:func:`fused_class_expand`).
+                      apv: torch.Tensor | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """K3: the (slots,) entry-ordered class arena, into ``out`` when
+    given.  v1 (``plan.expand`` false): from the class's products ``x``,
+    in arena order.  v2: from ``bank`` and ``apv``
+    (:func:`fused_class_expand`).
 
     CPU tensors take :func:`fused_class_plain`; CUDA tensors launch the
     kernel (``csrc/fused_class.cu``) or raise.
     """
     if plan.expand:
-        return fused_class_expand(plan, bank, apv)
+        return fused_class_expand(plan, bank, apv, out)
     if x is None or x.numel() < plan.slots:
         raise ValueError(f"{0 if x is None else x.numel()} products for "
                          f"{plan.slots} slots")
     if x.device.type == "cpu":
-        return fused_class_plain(plan, x)
-    x = x[: plan.slots]
-    cuda_lib.require_cuda(
-        "fused_class_apply", x, plan.tile_idx, plan.tier_idx, plan.ext_idx,
-        plan.entry_idx,
-    )
-    out = torch.empty(plan.slots, dtype=x.dtype, device=x.device)
-    if not plan.slots:
-        return out
-    with torch.cuda.device(x.device):
-        scratch = _scratch(plan, x.dtype, x.device)
-        rc = cuda_lib.entry("nsp_fused_class", x.dtype)(
-            cuda_lib.ptr(x), cuda_lib.ptr(out), cuda_lib.ptr(plan.tile_idx),
-            cuda_lib.ptr(plan.ext_idx), cuda_lib.ptr(plan.entry_idx),
-            cuda_lib.ptr(plan.tier_idx),
-            plan.n_win, plan.w, plan.lv, len(plan.tier_vs), _tier_widths(plan),
-            None if scratch is None else cuda_lib.ptr(scratch),
-            plan.pyr_len, cuda_lib.stream(x),
-        )
-    cuda_lib.check(rc, "fused_class_apply")
-    fused_class_apply.launches += 1
+        return fused_class_plain(plan, x, out=out)
+    out = _class_out(plan, x, out)
+    if plan.slots:
+        cuda_lib.launch("fused_class_apply", "nsp_fused_class",
+                        x[: plan.slots], plan.tile_idx, plan.pyr_dst,
+                        plan.tier_idx, out, plan.n_win, plan.w, plan.lv,
+                        len(plan.tier_vs))
+        fused_class_apply.launches += 1
     return out
 
 
 fused_class_apply.launches = 0
+
+
+def launch_geometry(plan: FusedClassPlan, dtype: torch.dtype) -> dict:
+    """How the kernel runs this class on the current card (built library
+    needed): ``cluster`` blocks per window, ``threads`` per block,
+    ``smem`` bytes of dynamic shared memory per block, and
+    ``blocks_per_sm``, the blocks of that shape an SM holds at once."""
+    got = (ctypes.c_int * 4)()
+    el = torch.empty(0, dtype=dtype).element_size()
+    rc = cuda_lib.KERNELS.get().nsp_fused_class_geom(
+        int(plan.expand), el, plan.n_win, plan.w, plan.lv,
+        len(plan.tier_vs), got)
+    cuda_lib.check(rc, "fused_class geometry")
+    return dict(cluster=got[0], threads=got[1], smem=got[2],
+                blocks_per_sm=got[3])

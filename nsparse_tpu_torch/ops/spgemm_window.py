@@ -1084,11 +1084,26 @@ def v2_delivery(w: WindowStructure, a_val: torch.Tensor, b_val: torch.Tensor,
             apv_values(w, a_val, ops.gather))
 
 
+def merge_buffer(w: WindowStructure, like: torch.Tensor) -> torch.Tensor:
+    """The merge source: the class arenas laid end to end (each class's
+    K3 writes its slice), then the fallback segment."""
+    return torch.empty(w.merge.n_src, dtype=like.dtype, device=like.device)
+
+
+def _class_slices(w: WindowStructure, res: torch.Tensor):
+    """Each class's slice of the merge buffer, in class order."""
+    off = 0
+    for fp in w.fused:
+        yield fp, res[off : off + fp.slots]
+        off += fp.slots
+
+
 def v2_classes(w: WindowStructure, bank: torch.Tensor, apv: torch.Tensor,
-               ops: NumericOps = KERNEL_OPS) -> list:
-    """v2 classes: each class's entry-ordered arena (K3 v2)."""
-    return [ops.fused_v2(fp, bank, apv[fp.apv_lo : fp.apv_hi])
-            for fp in w.fused]
+               res: torch.Tensor, ops: NumericOps = KERNEL_OPS) -> None:
+    """v2 classes: each class's entry-ordered arena (K3 v2), into its
+    slice of the merge buffer ``res``."""
+    for fp, out in _class_slices(w, res):
+        ops.fused_v2(fp, bank, apv[fp.apv_lo : fp.apv_hi], out=out)
 
 
 def fallback_segment(w: WindowStructure, prod: torch.Tensor,
@@ -1110,17 +1125,21 @@ def fallback_segment(w: WindowStructure, prod: torch.Tensor,
 
 def v2_fallback(w: WindowStructure, a_val: torch.Tensor, bank: torch.Tensor,
                 ops: NumericOps = KERNEL_OPS) -> torch.Tensor:
-    """v2 fallback: the pool's products through the piece route (K1, K2
-    piece mode, K12), then :func:`fallback_segment`."""
+    """v2 fallback: the pool's products through the piece route (K1, one
+    K2 piece-mode launch, K12), then :func:`fallback_segment`."""
     prod = piecewise.expand_from_bank(w.pw, a_val, bank, ops.gather,
                                       ops.pieces, ops.tiles8, ops.pieces_flat,
                                       ops.scatter)
     return fallback_segment(w, prod, ops)
 
 
-def merge_segments(plan, segs: list, ops: NumericOps = KERNEL_OPS):
-    """``c_val`` from the class arenas and the fallback segment (K4)."""
-    res = torch.cat(segs) if len(segs) > 1 else segs[0]
+def merge_segments(plan, res: torch.Tensor, fb_seg: torch.Tensor | None,
+                   ops: NumericOps = KERNEL_OPS):
+    """``c_val`` from the merge buffer ``res``, whose class arenas K3 has
+    written, and the fallback segment (copied in behind them; None when
+    no row falls back) (K4)."""
+    if fb_seg is not None:
+        res[plan.win.n_compact :].copy_(fb_seg)
     c_val = ops.runcopy(plan.win.merge, res)[: plan.c_capacity]
     c_val[plan.c_nnz :] = 0  # the capacity tail past nnz(C) holds zeros
     return c_val
@@ -1131,28 +1150,32 @@ def spgemm_numeric_window(plan, a: CSR, b: CSR,
     """Window numeric phase, in the plan's form.  v1: K2 expansion -> per
     class K3 fused reduction -> fallback pool -> K4 merge.  v2: delivery
     (K11, K1) -> classes (K3 v2) -> fallback (piece route, K1, slab
-    reduce, K1) -> merge (K4).
+    reduce, K1) -> merge (K4).  Each class's K3 writes its slice of one
+    merge buffer; only the fallback segment is copied in behind them.
 
     ``ops=PLAIN_OPS`` runs the plain PyTorch version of every kernel on
     the inputs' device — the reference the kernels are timed and checked
     against on the card.
     """
     w: WindowStructure = plan.win
+    res = merge_buffer(w, a.val)
+    fb_seg = None
     if w.fused_expand:
         bank, apv = v2_delivery(w, a.val, b.val, ops)
-        segs = v2_classes(w, bank, apv, ops)
+        v2_classes(w, bank, apv, res, ops)
         if w.fb_shuffle is not None:
-            segs.append(v2_fallback(w, a.val, bank, ops))
+            fb_seg = v2_fallback(w, a.val, bank, ops)
     else:
         prod = ops.expand(w.expand, a.val, b.val)
-        segs = [ops.fused(fp, prod[base : base + slots])
-                for fp, (base, slots, _, _) in zip(w.fused, w.class_geom)]
+        for (fp, out), (base, slots, _, _) in zip(_class_slices(w, res),
+                                                  w.class_geom):
+            ops.fused(fp, prod[base : base + slots], out=out)
         if w.fb_shuffle is not None:
-            segs.append(fallback_segment(w, prod, ops))
+            fb_seg = fallback_segment(w, prod, ops)
     return CSR(
         rpt=plan.c_rpt,
         col=plan.c_col,
-        val=merge_segments(plan, segs, ops),
+        val=merge_segments(plan, res, fb_seg, ops),
         shape=plan.shape,
         nnz=plan.c_nnz,
     )

@@ -9,6 +9,8 @@ only leaves room for XLA CPU fusion.  The CUDA kernels themselves are held
 against the same plain versions on the card by ``chip_smoke.py``.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,9 @@ from nsparse_tpu.ops.kernels.piecewise import build_bank as j_build_bank
 from nsparse_tpu.ops.kernels.piecewise import piecewise_expand as j_expand
 from nsparse_tpu.ops.kernels.runcopy import build_runcopy_plan as j_rc_plan
 from nsparse_tpu.ops.kernels.runcopy import runcopy as j_runcopy
+from nsparse_tpu.ops.kernels.window_fused import (
+    _fused_reference as j_fused_ref,
+)
 from nsparse_tpu.ops.kernels.window_fused import fused_class_apply as j_fused
 from nsparse_tpu.ops.spgemm import slab_class_reduce as j_slab_reduce
 from nsparse_tpu.ops.spgemm import spgemm_plan as j_plan
@@ -40,6 +45,7 @@ from nsparse_tpu_torch.ops.kernels import (
     window_fused,
 )
 from nsparse_tpu_torch.ops.spgemm import slab_class_reduce
+from test_torch_spgemm import _lift_ext
 
 DTYPES = [np.float32, np.float64]
 FOLD_RTOL = {np.float32: 1e-6, np.float64: 1e-12}
@@ -286,7 +292,8 @@ def test_expand_pieces_picks_the_last_piece():
     boffs = torch.tensor([3, 64 + 5, 0, 0, 0, 0], dtype=torch.int32)
     apv = torch.tensor([2.0, -1.0, 7.0, 7.0, 7.0, 7.0], dtype=torch.float64)
     out = torch.full((2048,), 9.0, dtype=torch.float64)
-    piecewise.expand_pieces(3, cuts, boffs, apv, bank, out)
+    tables = piecewise.merge_piece_tables([3], [cuts], [boffs])
+    piecewise.expand_pieces(tables, apv, bank, out)
     p = torch.arange(1024, dtype=torch.float64)
     want = torch.where(p < 100, 2.0 * (3 * 128 + p), -(69 * 128 + p))
     assert torch.equal(out[:1024], want)
@@ -312,7 +319,9 @@ def test_v2_wrappers_raise_off_cpu_without_cuda():
             torch.zeros(2048, device="meta"),
             torch.zeros(2, dtype=torch.int32, device="meta")),
         lambda: piecewise.expand_pieces(
-            2, wm.fused[0].ecuts[:4], wm.fused[0].eboffs[:4], apv[:4], bank,
+            piecewise.merge_piece_tables(
+                [2], [w.fused[0].ecuts[:4]], [w.fused[0].eboffs[:4]]
+            ).to("meta"), apv[:4], bank,
             torch.zeros(2048, device="meta", dtype=torch.float64)),
         lambda: window_fused.fused_class_apply(fp, bank=bank, apv=apv),
     ]
@@ -455,7 +464,8 @@ def test_expand_pieces_flat_reads_the_table():
                          dtype=torch.int32)
     apv = torch.tensor([2.0, -1.0, 5.0, 5.0], dtype=torch.float64)
     out = torch.full((2048,), 9.0, dtype=torch.float64)
-    piecewise.expand_pieces_flat(2, cuts, boffs, apv, tbl, out)
+    piecewise.expand_pieces_flat(
+        piecewise.merge_piece_tables([2], [cuts], [boffs]), apv, tbl, out)
     p = torch.arange(1024)
     want = torch.where(p < 3, 2.0 * tbl[piecewise.BIAS + p],
                        -tbl[piecewise.BIAS + 5 + p])
@@ -470,7 +480,9 @@ def test_flat_and_kfold_wrappers_raise_off_cpu_without_cuda():
     i32 = dict(meta, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
         piecewise.expand_pieces_flat(
-            2, torch.zeros(2, **i32), torch.zeros(2, **i32),
+            piecewise.merge_piece_tables(
+                [2], [torch.zeros(2, dtype=torch.int32)],
+                [torch.zeros(2, dtype=torch.int32)]).to("meta"),
             torch.zeros(2, **meta), torch.zeros(4096, **meta),
             torch.zeros(1024, **meta))
     plan, _ = runcopy.build_runcopy_plan([0], [4], 16, kfac=[2], stride=[8])
@@ -478,3 +490,200 @@ def test_flat_and_kfold_wrappers_raise_off_cpu_without_cuda():
         runcopy.runcopy(plan.to("meta"), torch.zeros(16, **meta))
     assert piecewise.expand_pieces_flat.launches == 0
     assert runcopy.runcopy_kfold.launches == 0
+
+
+# -- K3's extraction table and wide windows ---------------------------------
+
+
+WIDE_W, WIDE_TIERS = 32768, (8192, 2048, 512)
+
+
+def _wide_class(seed, expand):
+    """A synthetic class of two W = 32768 windows (the widest the window
+    planner builds): 3 fold levels, three radix-8 tiers, a random tile
+    permutation and random tier sources per window, and an extraction of
+    a random third of each pyramid into random output slots.  ``expand``
+    adds v2 piece tables: 64 subtiles of 1-6 pieces each (a gap before the
+    first), one step, pad entries past the pieces as the planner leaves
+    them.  Returns (port plan arguments, pieces or None)."""
+    w, n_win, lv = WIDE_W, 2, 3
+    slots = w * n_win
+    rng = np.random.default_rng(seed)
+    pyr_len = sum(window_fused.level_widths(w, lv, WIDE_TIERS))
+    tile = np.concatenate([rng.permutation(w) for _ in range(n_win)])
+    tier_idx = [rng.integers(0, v, n_win * v) for v in WIDE_TIERS]
+    ext = np.full(slots, -1, np.int64)
+    entry = np.concatenate([rng.permutation(w) for _ in range(n_win)])
+    for win in range(n_win):
+        e_slots = rng.choice(w, w // 3, replace=False)
+        ext[win * w + e_slots] = rng.choice(pyr_len, w // 3, replace=False)
+    args = dict(w=w, slots=slots, lv=lv, tier_vs=WIDE_TIERS,
+                tile_idx=tile, tier_idx=tier_idx, ext_idx=ext,
+                entry_idx=entry)
+    if not expand:
+        return args, None
+    j2_cap, n_sub, bank_rows = 512, slots // 1024, 64
+    ecuts = np.zeros(j2_cap, np.int64)
+    eends = np.full(j2_cap, 1024, np.int64)
+    eboffs = np.zeros(j2_cap, np.int64)
+    etrips = np.zeros((n_sub, 2), np.int64)
+    q = 0
+    for sub in range(n_sub):
+        n = int(rng.integers(1, 7))
+        bounds = np.sort(rng.choice(np.arange(8, 1025, 8), n + 1,
+                                    replace=False))
+        ecuts[q : q + n] = bounds[:-1]
+        eends[q : q + n] = bounds[1:]
+        eboffs[q : q + n] = rng.integers(0, 16 * bank_rows - 8, n)
+        etrips[sub] = (q, q + n)
+        q += n
+    pieces = window_fused.ClassPieces(etrips, ecuts, eboffs, eends, j2_cap,
+                                      slots, 0, j2_cap, bank_rows)
+    return args, pieces
+
+
+def _wide_products(pieces, bank, apv):
+    """numpy: the v2 class's products in arena order (0 where no piece)."""
+    e = np.zeros(pieces.etrips.shape[0] * 1024, bank.dtype)
+    flat = bank.reshape(-1)
+    for sub, (lo, hi) in enumerate(pieces.etrips):
+        for q in range(lo, hi):
+            p = np.arange(pieces.ecuts[q], pieces.eends[q])
+            e[sub * 1024 + p] = flat[pieces.eboffs[q] * 128 + p] * apv[q]
+    return e
+
+
+@pytest.mark.parametrize("expand", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_class_wide_windows_match_jax_reference(dtype, expand):
+    """K3's plain version at W = 32768, through the composed extraction
+    table, against the JAX ``_fused_reference`` (fed the same products in
+    fold order, the plan's indices lifted to its class-global form) bit
+    for bit, in both modes."""
+    args, pieces = _wide_class(3, expand)
+    plan = window_fused.build_fused_plan(**args, pieces=pieces)
+    w, slots = args["w"], args["slots"]
+    win0 = np.arange(slots) // w * w
+    if expand:
+        bank = _vals(16 * pieces.bank_rows * 128, dtype, 5).reshape(-1, 128)
+        apv = _vals(pieces.j2_cap, dtype, 6)
+        e = _wide_products(pieces, bank, apv)
+        got = window_fused.fused_class_apply(
+            plan, bank=torch.from_numpy(bank), apv=torch.from_numpy(apv))
+    else:
+        e = _vals(slots, dtype, 7)
+        got = window_fused.fused_class_apply(plan, torch.from_numpy(e))
+    n_win = slots // w
+    ref = types.SimpleNamespace(
+        w=w, slots=slots, lv=args["lv"],
+        tier_meta=[(None, v, None) for v in WIDE_TIERS],
+        ref_tier_idx=[np.asarray(t) + np.arange(n_win * v) // v * v
+                      for t, v in zip(args["tier_idx"], WIDE_TIERS)],
+        ref_ext_idx=_lift_ext(args["ext_idx"], w, args["lv"], WIDE_TIERS,
+                              slots),
+        ref_entry_idx=args["entry_idx"] + win0)
+    fold = e[win0 + args["tile_idx"]]  # the products in fold-slot order
+    want = np.asarray(j_fused_ref(ref, jnp.asarray(fold)))
+    assert want.dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_extraction_table_composes_ext_and_entry(plans):
+    """``pyr_dst`` inverts ``ext[entry[i]]``: per window, each pyramid
+    value read names the one output slot that reads it; the others hold
+    -1.  Two slots reading one value are refused, as is a window past
+    MAX_WIDTH."""
+    tp = plans[3]
+    for fp in tp.win.fused:
+        n_win, w = fp.n_win, fp.w
+        ext = fp.ext_idx.numpy().astype(np.int64)
+        entry = fp.entry_idx.numpy().astype(np.int64)
+        dst = fp.pyr_dst.numpy().reshape(n_win, -1).astype(np.int64)
+        assert fp.pyr_dst.dtype == torch.int16
+        assert dst.shape[1] == fp.pyr_len
+        win0 = np.arange(fp.slots) // w * w
+        src = ext[win0 + entry].reshape(n_win, w)
+        for win in range(n_win):
+            read = np.flatnonzero(src[win] >= 0)
+            np.testing.assert_array_equal(dst[win, src[win, read]], read)
+            assert (dst[win] >= 0).sum() == read.size
+    ok = dict(w=4, slots=8, lv=0, tier_vs=(), tier_idx=[],
+              tile_idx=np.array([0, 1, 2, 3] * 2),
+              entry_idx=np.array([0, 1, 2, 3] * 2))
+    with pytest.raises(ValueError, match="read one pyramid value"):
+        window_fused.build_fused_plan(
+            **ok, ext_idx=np.array([0, 1, 1, -1] * 2))
+    with pytest.raises(ValueError, match="exceed"):
+        window_fused.build_fused_plan(
+            w=65536, slots=65536, lv=0, tier_vs=(), tier_idx=[],
+            tile_idx=np.zeros(65536), ext_idx=np.full(65536, -1),
+            entry_idx=np.zeros(65536))
+
+
+def test_v2_piece_subtiles():
+    """``esub`` names each piece's window-local subtile (0 for pads), and
+    the pieces of one window's subtiles must follow each other."""
+    args, pieces = _wide_class(8, True)
+    plan = window_fused.build_fused_plan(**args, pieces=pieces)
+    esub = plan.esub.numpy()
+    for sub, (lo, hi) in enumerate(pieces.etrips):
+        assert (esub[lo:hi] == sub % 32).all()
+    assert not esub[pieces.etrips[-1, 1]:].any()
+    et = pieces.etrips.copy()
+    et[5] = (et[5, 0] + 1, et[5, 1])  # a hole after subtile 4's pieces
+    with pytest.raises(ValueError, match="not consecutive"):
+        window_fused.build_fused_plan(**args, pieces=pieces._replace(
+            etrips=et))
+
+
+def _piece_plan(monkeypatch, flat):
+    """The port's and the JAX package's piece plans of the global layout
+    on B whose row degrees are multiples of 8 (where the JAX unaligned
+    mode reads right), with pieces in several budget classes; ``flat``
+    patches BANK_ROWS_MAX in both packages (the unaligned mode)."""
+    import nsparse_tpu.ops.kernels.piecewise as jpw
+    import scipy.sparse as sp
+
+    if flat:
+        monkeypatch.setattr(jpw, "BANK_ROWS_MAX", 1)
+        monkeypatch.setattr(piecewise, "BANK_ROWS_MAX", 1)
+    rng = np.random.default_rng(31)
+    n = 400
+    b_s = sp.lil_matrix((n, n))
+    for r in range(n):
+        deg = 8 * int(rng.choice([1, 2, 4, 12, 40]))
+        b_s[r, rng.choice(n, size=deg, replace=False)] = \
+            rng.standard_normal(deg)
+    a_s = sp.csr_matrix(sp.random(300, n, density=0.03, random_state=2))
+    b_s = sp.csr_matrix(b_s)
+    jp = j_plan(JCSR.from_scipy(a_s), JCSR.from_scipy(b_s), shuffle=True,
+                layout="global")
+    tp = nt.spgemm_plan(nt.CSR.from_scipy(a_s), nt.CSR.from_scipy(b_s),
+                        shuffle=True, layout="global")
+    return jp, tp, a_s, b_s
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["aligned", "flat"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_merged_piece_expansion_matches_jax(monkeypatch, dtype, flat):
+    """K2's plain version over the merged tables of every piece class (one
+    launch on the card) against the JAX piecewise_expand, slot for slot,
+    in the aligned and the flat mode; the merged tables hold the classes'
+    tables end to end."""
+    jp, tp, a_s, b_s = _piece_plan(monkeypatch, flat)
+    pw = tp.glob.pw
+    assert pw.aligned == (not flat)
+    assert sum(1 for i in pw.ids if i.numel()) >= 3  # several classes
+    tables = pw.pieces
+    assert [r[1] for r in tables.rows] == [
+        j for j, i in zip(piecewise.J_CLASSES, pw.ids) if i.numel()]
+    np.testing.assert_array_equal(
+        tables.cuts.numpy(), np.concatenate([c.numpy() for c in pw.cuts]))
+    assert tables.n_sub == pw.n_compact
+    a = _vals(a_s.nnz, dtype, 12)
+    b = _vals(b_s.nnz, dtype, 13)
+    want = np.asarray(j_expand(jp.pw, jnp.asarray(a), jnp.asarray(b)))
+    table = piecewise.build_table(pw, tp.glob.b8_idx, torch.from_numpy(b))
+    got = piecewise.piecewise_expand(pw, torch.from_numpy(a),
+                                     torch.from_numpy(b), bank=table)
+    np.testing.assert_array_equal(got.numpy()[: want.size], want)

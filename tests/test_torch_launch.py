@@ -1,6 +1,7 @@
 """The lean launch path (``cuda_lib.launch``) of K6 scatter_tiles, K12
-gather_tiles8, K11 build_bank, K5 gather_subset, K1 gather and K9
-spgemm_bsr_blocks, without a card and without building the kernel
+gather_tiles8, K11 build_bank, K5 gather_subset, K1 gather, K9
+spgemm_bsr_blocks, K3 fused_class (both modes) and K2 (run form, piece
+and flat modes), without a card and without building the kernel
 library.
 
 The library is never built or loaded here: every test that could reach it
@@ -20,12 +21,14 @@ import torch
 
 from nsparse_tpu.ops.kernels.gather_pallas import scatter_tiles as j_scatter
 
+import nsparse_tpu_torch as nt
 from nsparse_tpu_torch.ops.kernels import (
     bsr_blocks,
     cuda_lib,
     gather_tiles,
     piecewise,
     shuffle,
+    window_fused,
 )
 
 
@@ -36,7 +39,10 @@ def _keep_launch_counts():
     worker."""
     wrappers = (gather_tiles.scatter_tiles, gather_tiles.gather_tiles8,
                 gather_tiles.gather_subset, piecewise.build_bank,
-                shuffle.gather, bsr_blocks.spgemm_bsr_blocks)
+                shuffle.gather, bsr_blocks.spgemm_bsr_blocks,
+                window_fused.fused_class_apply,
+                window_fused.fused_class_expand, piecewise.expand_pieces,
+                piecewise.expand_pieces_flat, piecewise.piecewise_expand)
     saved = [w.launches for w in wrappers]
     yield
     for w, n in zip(wrappers, saved):
@@ -98,8 +104,13 @@ def _i32(n=1):
      "int32"),
     ((_f32(), _i32(), torch.zeros(1024, dtype=torch.float64)), TypeError,
      "share one dtype"),
+    # int16 indices (K3's extraction table) pass the index check
+    ((torch.zeros(1024, device="meta"),
+      torch.zeros(1, dtype=torch.int16, device="meta"),
+      torch.zeros(1024, device="meta")), ValueError,
+     r"must be on one CUDA device, got \['meta'\]"),
 ], ids=["cpu", "mixed-devices", "non-contiguous", "int64-indices",
-        "mixed-floats"])
+        "mixed-floats", "int16-indices"])
 def test_launch_checks_before_touching_the_library(no_library, args, error,
                                                    match):
     a, i, b = args
@@ -198,6 +209,48 @@ def _k9(d, n_pairs=3, bs=64):
         tiles, tiles, p, p, p, torch.tensor([0, n_pairs, n_pairs], **i32))
 
 
+def _k3(d, expand=False):
+    """K3 on one class: v1, two 256-slot windows with one tier; v2, one
+    2048-slot window of two subtiles and three pieces."""
+    if expand:
+        w = 2048
+        ident = np.arange(w)
+        pieces = window_fused.ClassPieces(
+            np.array([[0, 2], [2, 3]]), np.array([0, 512, 0, 0]),
+            np.array([0, 1, 2, 0]), np.array([512, 1024, 1024, 1024]),
+            j2_cap=4, blk=2048, apv_lo=0, apv_hi=4, bank_rows=64)
+        plan = window_fused.build_fused_plan(
+            w, w, 0, (), ident, [], np.full(w, -1), ident, pieces).to(d)
+        return window_fused.fused_class_apply(
+            plan, bank=torch.zeros(16 * 64, 128, device=d),
+            apv=torch.zeros(4, device=d))
+    w, lv = 256, 3
+    ident = np.tile(np.arange(w), 2)
+    plan = window_fused.build_fused_plan(
+        w, 2 * w, lv, (64,), ident, [np.zeros(128)], np.full(2 * w, -1),
+        ident).to(d)
+    return window_fused.fused_class_apply(plan, torch.zeros(2 * w, device=d))
+
+
+def _k2_pieces(d, flat=False, n_sub=2):
+    """K2's piece mode (or flat mode) over two classes: one subtile of
+    budget 2, then ``n_sub - 1`` of budget 4."""
+    tables = piecewise.merge_piece_tables(
+        [2, 4], [np.zeros(2), np.zeros(4 * (n_sub - 1))],
+        [np.zeros(2), np.zeros(4 * (n_sub - 1))]).to(d)
+    run = piecewise.expand_pieces_flat if flat else piecewise.expand_pieces
+    return run(tables, torch.zeros(tables.cuts.numel(), device=d),
+               torch.zeros(16 * 64, 128, device=d),
+               torch.zeros(n_sub * 1024, device=d))
+
+
+def _k2_runs(d):
+    plan = piecewise.build_expand_plan([0, 8], [0, 6], [8, 3], [0, 1], 16,
+                                       nnz_a=2, nnz_b=9).to(d)
+    return piecewise.piecewise_expand(plan, torch.zeros(2, device=d),
+                                      torch.zeros(9, device=d))
+
+
 # the argument of the null ``other`` pointer: the int 0, in that slot only
 K5_NULL_OTHER = 6
 
@@ -216,7 +269,13 @@ K5_NULL_OTHER = 6
     (_k11, "nsp_build_bank", None),
     (_k1, "nsp_gather", None),
     (_k9, "nsp_spgemm_bsr", None),
-], ids=["K6", "K12", "K5", "K5-null-other", "K11", "K1", "K9"])
+    (_k3, "nsp_fused_class", None),
+    (lambda d: _k3(d, expand=True), "nsp_fused_class_v2", None),
+    (_k2_pieces, "nsp_expand_pieces", None),
+    (lambda d: _k2_pieces(d, flat=True), "nsp_expand_pieces", None),
+    (_k2_runs, "nsp_expand", None),
+], ids=["K6", "K12", "K5", "K5-null-other", "K11", "K1", "K9", "K3",
+        "K3-v2", "K2-pieces", "K2-flat", "K2-runs"])
 def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name, null_slot):
     """The wrappers on the lean path hand ``launch`` one argument per C
     parameter before the stream: a tensor for each pointer, an int for
@@ -236,6 +295,53 @@ def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name, null_slot):
             continue
         assert isinstance(a, torch.Tensor) == (kind is cuda_lib._P)
         assert isinstance(a, (torch.Tensor, int))
+
+
+def test_k3_and_k2_pass_their_sizes(monkeypatch):
+    """K3 passes the class's windows, width, fold levels and tier count
+    (v2 also the subtiles per step and the region size) and its int16
+    extraction table; K2's piece modes pass the class rows, the compact
+    subtiles and the row scale (128 bank, 1 flat)."""
+    seen = []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: seen.append(args))
+    _k3("meta")
+    _k3("meta", expand=True)
+    _k2_pieces("meta", n_sub=3)
+    _k2_pieces("meta", flat=True, n_sub=3)
+    v1, v2, pieces, flat = seen
+    assert v1[2].dtype == torch.int16 and v1[5:] == (2, 256, 3, 1)
+    assert v2[8].dtype == torch.int16 and v2[11:] == (1, 2048, 0, 0, 2, 4)
+    assert pieces[5:8] == (2, 3, 128) and flat[5:8] == (2, 3, 1)
+    assert pieces[4].shape == (2, 3)
+    tables = piecewise.merge_piece_tables([2, 8, 4], [np.zeros(2), [],
+                                                      np.zeros(8)],
+                                          [np.zeros(2), [], np.zeros(8)])
+    assert tables.cls.tolist() == [[0, 2, 0], [1, 4, 2]]
+    assert tables.rows == ((0, 2, 0), (1, 4, 2)) and tables.n_sub == 3
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["aligned", "flat"])
+def test_expand_from_bank_launches_k2_once(monkeypatch, flat):
+    """A piece plan with subtiles in three budget classes expands in one
+    K2 launch (and one K1 for the A values, one K12), in either mode."""
+    if flat:
+        monkeypatch.setattr(piecewise, "BANK_ROWS_MAX", 1)
+    a = nt.rmat_csr(9, edge_factor=6, dtype=np.float32, seed=4)
+    pw = nt.spgemm_plan(a, a, shuffle=True, layout="global").glob.pw
+    assert pw.aligned == (not flat)
+    assert sum(1 for i in pw.ids if i.numel()) >= 3
+    seen = []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: seen.append(name))
+    rows = pw.table_rows * (piecewise.BANK_K if pw.aligned else 1)
+    piecewise.expand_from_bank(pw.to("meta"), a.val.to("meta"),
+                               torch.zeros(rows, 128, device="meta"))
+    assert sorted(seen) == ["nsp_expand_pieces", "nsp_gather",
+                            "nsp_gather_tiles8"]
+    launches = (piecewise.expand_pieces_flat if flat
+                else piecewise.expand_pieces).launches
+    assert launches == 1
 
 
 def test_k5_passes_its_sizes(monkeypatch):
@@ -270,17 +376,28 @@ def test_k5_passes_its_sizes(monkeypatch):
     lambda: _k1("meta", n=0),
     lambda: _k9("meta"),
     lambda: _k9("meta", n_pairs=0),
+    lambda: _k3("meta"),
+    lambda: _k3("meta", expand=True),
+    lambda: _k2_pieces("meta"),
+    lambda: _k2_pieces("meta", flat=True),
+    lambda: _k2_runs("meta"),
 ], ids=["K6", "K6-empty", "K12-empty", "K5", "K5-empty", "K5-null-other",
-        "K11", "K1", "K1-empty", "K9", "K9-no-pairs"])
+        "K11", "K1", "K1-empty", "K9", "K9-no-pairs", "K3", "K3-v2",
+        "K2-pieces", "K2-flat", "K2-runs"])
 def test_wrappers_refuse_a_non_cuda_device(no_library, call):
-    """Off the CPU, K6, K12, K5, K11, K1 and K9 launch on a card or raise,
-    also when there is nothing to move; no launch is counted."""
+    """Off the CPU, K6, K12, K5, K11, K1, K9, K3 and K2 launch on a card
+    or raise, also when there is nothing to move; no launch is counted."""
     def counts():
         return (gather_tiles.scatter_tiles.launches,
                 gather_tiles.gather_tiles8.launches,
                 gather_tiles.gather_subset.launches,
                 piecewise.build_bank.launches, shuffle.gather.launches,
-                bsr_blocks.spgemm_bsr_blocks.launches)
+                bsr_blocks.spgemm_bsr_blocks.launches,
+                window_fused.fused_class_apply.launches,
+                window_fused.fused_class_expand.launches,
+                piecewise.expand_pieces.launches,
+                piecewise.expand_pieces_flat.launches,
+                piecewise.piecewise_expand.launches)
 
     before = counts()
     with pytest.raises(ValueError, match="must be on one CUDA device"):

@@ -6,14 +6,19 @@
 DIR is the root of a checkout of the repository (an unpacked ``git
 archive`` of another commit, or ``.``).  The script imports DIR's
 ``nsparse_tpu_torch`` and DIR's own ``chip_smoke.py``, runs that script's
-path phases (SpGEMM window, the other ESC layouts, SpMV, block SpGEMM),
+path phases (SpGEMM window and the other ESC layouts; SpMV and block
+SpGEMM unless every KERNEL is a window kernel, K3 or K2's piece modes),
 which print their path times and record each kernel's calls, and then,
 from this tree's ``chip_smoke.py``, on the calls DIR's paths made: the
 phase of each KERNEL that has one (K9 spgemm_bsr_blocks: ``k9_phase``,
 without its tensor-core check; K1 gather: ``k1_phase``; K11 build_bank
-and K5 gather_subset: ``bank_subset_phase``), the launch-cost phase, and
-the kernel table's rows of KERNEL (default: spgemm_bsr_blocks gather),
-every bound by this tree's rule.
+and K5 gather_subset: ``bank_subset_phase``; K3 fused_class and
+fused_class_v2, K2 expand_pieces and expand_pieces_flat:
+``k3_k2_phase``), the launch-cost phase (not for the window kernels
+alone), and the kernel table's rows of
+KERNEL (default: fused_class fused_class_v2 expand_pieces
+expand_pieces_flat), every bound by this tree's rule (for K3, the rule of
+the tables the tree's plans hold).
 Run it once per tree in one call of the card, in turns (parent, change,
 change, parent), to compare them.
 """
@@ -38,7 +43,8 @@ def main() -> None:
     if len(sys.argv) < 2:
         sys.exit(__doc__)
     root = os.path.abspath(sys.argv[1])
-    kernels = sys.argv[2:] or ["spgemm_bsr_blocks", "gather"]
+    kernels = sys.argv[2:] or ["fused_class", "fused_class_v2",
+                               "expand_pieces", "expand_pieces_flat"]
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)  # DIR's nsparse_tpu_torch
     import torch
@@ -55,8 +61,13 @@ def main() -> None:
     # 3xTF32 one), so that both trees' rows are read against the same
     s.bound_ms = types.MethodType(this.Smoke.bound_ms, s)
     s.cuda_lib.KERNELS.get()
-    phases = [tree.spgemm_phase, tree.esc_layout_phases, tree.spmv_phases,
-              tree.bsr_spgemm_phases]
+    # the window kernels need only the SpGEMM paths (and no launch-cost
+    # phase); any other kernel runs every path
+    window = {"fused_class", "fused_class_v2", "expand_pieces",
+              "expand_pieces_flat"}
+    phases = [tree.spgemm_phase, tree.esc_layout_phases]
+    if not set(kernels) <= window:
+        phases += [tree.spmv_phases, tree.bsr_spgemm_phases]
     if "spgemm_bsr_blocks" in kernels:
         # the other tree's K9 may predate the tensor cores
         phases.append(functools.partial(this.k9_phase, sass=False))
@@ -64,7 +75,11 @@ def main() -> None:
         phases.append(this.k1_phase)
     if {"build_bank", "gather_subset"} & set(kernels):
         phases.append(this.bank_subset_phase)
-    for phase in (*phases, this.launch_cost_phase):
+    if window & set(kernels):
+        phases.append(this.k3_k2_phase)
+    if not set(kernels) <= window:
+        phases.append(this.launch_cost_phase)
+    for phase in phases:
         t0 = time.perf_counter()
         phase(s)
         name = getattr(phase, "__name__", None) or phase.func.__name__
