@@ -61,8 +61,14 @@ Phases (any failure exits non-zero before the final line):
                   products (K9's error beside them);
        FEM f64    the bench's 512-node FEM matrix in float64;
      each timed with the kernels, the plain versions and cuSPARSE CSR;
-  6. windowed gather (K10) on 262,144 rows for windows 32, 128 and 1024,
-     equal to its plain version and to ``torch.gather`` bit for bit (no
+  6. windowed gather (K10) on 262,144 rows for windows 32, 128 and 1024 in
+     float32, 1024 in float64, 100 (not a divisor of 128) with a quarter
+     of its indices outside the window, 512 in float32, 128 and 384 in
+     float64, and 128 with misaligned indices in rows of 130 values in
+     both dtypes (every route and branch of the kernel): equal to its
+     plain version bit for bit and to ``torch.gather`` on the in-window
+     slots (0 on the others), its route (direct or a thread per output)
+     and its 32- and 64-byte sector floors printed beside its bound (no
      path of the library calls it: it stands alone, as on the TPU);
   7. the tile copies: K6's scalar and vector branches against its plain
      version (``torch.equal``, f32 and f64); K6 on the FEM value re-run
@@ -99,11 +105,11 @@ Phases (any failure exits non-zero before the final line):
      launch on the v2 and global paths and its one flat-mode launch on
      R-MAT-16 the same way;
   8. launch cost: host µs per call of each step of the ctypes launch
-     path alone (old and new), of K12, K6, K11, K5 and K1 through
-     ``cuda_lib.launch``, of K4 through the old path (the control) and of
-     the PyTorch calls that compute the same functions, at 1 tile (1
-     unit) and at the main path's own calls: the median of LAUNCH_ROUNDS
-     rounds of LAUNCH_REPS back-to-back calls, every step in each round;
+     path (``cuda_lib.launch``) alone, of K12, K6, K11, K5, K1, K4, K7 and
+     K8 through it and of the PyTorch calls that compute the same
+     functions, at 1 tile (1 unit; K7 and K8 on a 32 x 32 stencil) and at
+     the main path's own calls: the median of LAUNCH_ROUNDS rounds of
+     LAUNCH_REPS back-to-back calls, every step in each round;
   9. each kernel against its plain PyTorch version on the card, on the
      inputs its paths gave it, timed with CUDA events beside the plain
      version, one PyTorch call that computes the same function (where
@@ -150,7 +156,20 @@ FEM_F64 = dict(FEM, n_nodes=512)  # the bench's FEM stage (bench.py:501)
 # (A tiles, pairs, C tiles, intermediate products P, nnz(C))
 FEM_BSR = (1274, 6350, 2284, 2_395_136_000, 66_215_936)
 FEM_F64_BSR = (None, 750, 268, None, 8_004_096)
-WG_ROWS, WG_WINDOWS = 262_144, (32, 128, 1024)
+# K10's phase, WG_ROWS rows a case: (window, dtype, a quarter of the
+# indices outside the window, misaligned: idx 4 bytes off 16-byte
+# alignment in rows of window + 2 values).  The cases take every route
+# and branch of csrc/windowed_gather.cu: the direct route below a 4 KB
+# span (f32 32-512, f64 128 and 384) with 16-byte index vectors, and
+# with one index at a time (misaligned), and a thread per output from
+# 4 KB (1024).
+WG_ROWS = 262_144
+WG_CASES = ((32, np.float32, False, False), (128, np.float32, False, False),
+            (1024, np.float32, False, False),
+            (1024, np.float64, False, False), (100, np.float32, True, False),
+            (512, np.float32, False, False), (128, np.float64, False, False),
+            (384, np.float64, False, False), (128, np.float32, True, True),
+            (128, np.float64, True, True))
 LAUNCH_REPS = 1000  # back-to-back calls per step of the launch-cost phase
 LAUNCH_ROUNDS = 5   # rounds of the launch-cost phase, every step in each
 CHECK_TILES = 16_384  # K6's vector-branch check: tiles of 1024 moved
@@ -650,8 +669,8 @@ class Smoke:
                 0, max(src.numel() - 1, 0))
             return lambda: src[il]
         if k == "windowed_gather":
-            win, idx, _ = args
-            il = idx.long()
+            win, idx, window = args
+            il = idx.long().clamp(0, window - 1)
             return lambda: torch.gather(win, 1, il)
         if k == "gather_tiles8":
             src, ids = args
@@ -1561,31 +1580,70 @@ def bsr_precision_check(s: Smoke, plan_d, tile_products) -> None:
         fail("block tile products lost full float32 precision under TF32")
 
 
+def sector_floor_ms(s: Smoke, win, idx, window: int, piece: int) -> float:
+    """The least time of a K10 call at the card's access granularity: the
+    indices and outputs once each, and every distinct ``piece``-byte
+    aligned piece of ``win`` (a 32-byte sector, a 64-byte burst) that a
+    valid index names."""
+    torch = s.torch
+    j = idx.long()
+    valid = (j >= 0) & (j < window)
+    vb = win.element_size()
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    at = (rows * win.shape[1] + j) * vb + win.data_ptr() % piece
+    pieces = int(torch.unique((at // piece)[valid]).numel())
+    return (idx.numel() * (4 + vb) + pieces * piece) / s.bw * 1e3
+
+
 def windowed_gather_phase(s: Smoke) -> None:
-    """K10 alone, at WG_ROWS rows per window width: equal to its plain
-    version and to torch.gather bit for bit, timed both ways."""
+    """K10 alone, at WG_ROWS rows per case of WG_CASES: equal to its plain
+    version bit for bit and to torch.gather on the in-window slots (the
+    others 0), its route and its sector floors beside its bound, timed
+    both ways."""
     torch = s.torch
     from nsparse_tpu_torch.ops.kernels import gather_tiles
 
-    for w in WG_WINDOWS:
+    # trees before the route rule have one route, a thread per output
+    route_of = getattr(gather_tiles, "windowed_gather_route", None)
+    names = ("direct", "thread per output")
+    for w, dtype, outside, misaligned in WG_CASES:
         rng = np.random.default_rng(w)
         win = torch.from_numpy(rng.standard_normal(
-            (WG_ROWS, max(w, 128)), dtype=np.float32)).to(s.dev)
-        idx = torch.from_numpy(rng.integers(
-            0, w, (WG_ROWS, 128)).astype(np.int32)).to(s.dev)
-        path = f"windowed-gather-w{w}"
+            (WG_ROWS, max(w, 128) + 2 * misaligned), dtype=dtype)).to(s.dev)
+        lo, hi = (-(w // 4), w + w // 4) if outside else (0, w)
+        flat = torch.from_numpy(rng.integers(
+            lo, hi, WG_ROWS * 128 + misaligned).astype(np.int32)).to(s.dev)
+        idx = flat[int(misaligned):].view(WG_ROWS, 128)
+        if misaligned != bool(idx.data_ptr() % 16):
+            fail(f"windowed gather w{w}: idx alignment is not the case's")
+        path = (f"windowed-gather-w{w}"
+                + ("-f64" if dtype == np.float64 else "")
+                + ("-outside" if outside else "")
+                + ("-misaligned" if misaligned else ""))
 
         def fn():
             return gather_tiles.windowed_gather(win, idx, w)
 
         out = s.counted(fn, ["windowed_gather"], path)
-        ok = torch.equal(out, gather_tiles.windowed_gather_plain(
-            win, idx, w)) and torch.equal(out, torch.gather(
-                win, 1, idx.long()))
-        print(f"{path}: equal to its plain version and torch.gather: "
-              f"{'pass' if ok else 'FAIL'}", flush=True)
+        j = idx.long()
+        inside = (j >= 0) & (j < w)
+        lib = torch.gather(win, 1, j.clamp(0, w - 1))
+        ok = (torch.equal(out, gather_tiles.windowed_gather_plain(win, idx, w))
+              and torch.equal(out[inside], lib[inside])
+              and not bool(out[~inside].any()))
+        route = "one (a thread per output)" if route_of is None else \
+            names[route_of(w, win.element_size())]
+        bound, _ = s.bound_ms("windowed_gather", (win, idx, w), out)
+        print(f"{path}: route {route}; equal to its plain version and, on "
+              f"the {int(inside.sum())} in-window slots, to torch.gather "
+              f"(the {int((~inside).sum())} slots outside the window 0): "
+              f"{'pass' if ok else 'FAIL'}; bound {bound:.4f} ms, 32-byte "
+              f"sector floor {sector_floor_ms(s, win, idx, w, 32):.4f} ms, "
+              f"64-byte {sector_floor_ms(s, win, idx, w, 64):.4f} ms",
+              flush=True)
         if not ok:
-            fail(f"{path}: K10 differs from its plain version")
+            fail(f"{path}: K10 differs from its plain version or "
+                 "torch.gather")
         s.record(fn, path)
         t = s.turns(fn)
         print(f"{path} [{s.name}, {s.card}]: kernels "
@@ -2123,23 +2181,23 @@ def host_us(torch, fn, reps: int = LAUNCH_REPS) -> float:
 
 def launch_cost_phase(s: Smoke) -> None:
     """Where the host's time per launch goes: each step of the ctypes
-    launch path alone, the whole wrappers, and the PyTorch calls that
-    compute the same functions, at 1 tile (K5: 1 unit; K11: one 64-row
-    copy) and at the main path's own calls (when the paths have run).
+    launch path (``cuda_lib.launch``) alone, the whole wrappers, and the
+    PyTorch calls that compute the same functions, at 1 tile (K5: 1 unit;
+    K11: one 64-row copy; K7 and K8: a 32 x 32 stencil) and at the main
+    path's own calls (when the paths have run).
     Each step is timed over LAUNCH_REPS back-to-back calls, in
     LAUNCH_ROUNDS rounds that take every step in turn; the median round is
     printed, with the fastest and slowest."""
-    torch, cl = s.torch, s.cuda_lib
+    torch, cl, nt = s.torch, s.cuda_lib, s.nt
     from nsparse_tpu_torch.buildlib import BUILD_DIR
     from nsparse_tpu_torch.ops.kernels import (
-        gather_tiles, piecewise, runcopy, shuffle)
+        dia, gather_tiles, piecewise, runcopy, shuffle, spmv_bsr)
 
     src = torch.randn(2 * 1024, device=s.dev)
     ids = torch.ones(1, dtype=torch.int32, device=s.dev)
     out = torch.empty(1024, device=s.dev)
     idx = torch.arange(1024, dtype=torch.int32, device=s.dev)
-    fn = cl.entry("nsp_gather_tiles8", torch.float32)
-    c_args = (cl.ptr(src), 2, cl.ptr(ids), 1, cl.ptr(out), cl.stream(src))
+    fn = cl.resolve("nsp_gather_tiles8", torch.float32)
     int_args = (src.data_ptr(), 2, ids.data_ptr(), 1, out.data_ptr(),
                 torch.cuda.current_stream(s.dev).cuda_stream)
     # the same entry point loaded through ctypes.PyDLL, which keeps the
@@ -2148,11 +2206,6 @@ def launch_cost_phase(s: Smoke) -> None:
         BUILD_DIR, "libnsparse_gather_tiles8-*.so"))[0]),
         "nsp_gather_tiles8_f32")
     held.argtypes, held.restype = fn.argtypes, fn.restype
-
-    def device_context():
-        with torch.cuda.device(src.device):
-            pass
-
     tiles, il, idx_l = src.view(-1, 1024), ids.long(), idx.long()
     # one unit of K5 (8,192 slots) and a one-copy K11 table of as many
     # slots (64 rows: the BIAS zeros and 6,144 table slots)
@@ -2163,20 +2216,15 @@ def launch_cost_phase(s: Smoke) -> None:
     bank_args = (torch.arange(64 * 128 - piecewise.BIAS, dtype=torch.int32,
                               device=s.dev), 64,
                  torch.randn(8192, device=s.dev), 1)
-    # K4 on one run of one tile, the control on the old path
+    # K4 on one run of one tile; K7 and K8 on a 32 x 32 stencil (1,024
+    # rows: DIA, and 8 block rows of (128, 128) BSR tiles)
     rc_plan = runcopy.build_runcopy_plan([0], [1024], src.numel(),
                                          dst=[0]).to(s.dev)
+    tiny = nt.stencil_csr(32, 32, dtype=np.float32)
+    tiny_dia = nt.DIA.from_csr(tiny).to(s.dev)
+    tiny_bsr = nt.BSR.from_csr(tiny, (128, 128)).to(s.dev)
+    tiny_x = torch.randn(tiny.shape[1], device=s.dev)
     steps = {
-        "old path: cuda_lib.entry": lambda: cl.entry("nsp_gather_tiles8",
-                                                     torch.float32),
-        "old path: with torch.cuda.device(dev): pass": device_context,
-        "old path: cuda_lib.stream(t)": lambda: cl.stream(src),
-        "old path: cuda_lib.require_cuda, 3 tensors":
-            lambda: cl.require_cuda("gather_tiles8", src, ids, out),
-        "old path: ctypes.c_void_p(t.data_ptr())":
-            lambda: ctypes.c_void_p(src.data_ptr()),
-        "bare ctypes call of K12's entry, 1 tile, c_void_p arguments":
-            lambda: fn(*c_args),
         "bare ctypes call of K12's entry, 1 tile, int arguments":
             lambda: fn(*int_args),
         "bare ctypes call of K12's entry, 1 tile, int arguments, "
@@ -2204,28 +2252,38 @@ def launch_cost_phase(s: Smoke) -> None:
         "K5 gather_subset, 1 unit":
             lambda: gather_tiles.gather_subset(*unit_args),
         "src[idx], 1 unit": s.library_call("gather_subset", unit_args),
-        "K4 runcopy (old path, the control), one run of 1 tile":
+        "K4 runcopy, one run of 1 tile":
             lambda: runcopy.runcopy(rc_plan, src),
+        "K7 spmv_dia, 32 x 32 stencil":
+            lambda: dia.spmv_dia(tiny_dia.vals, tiny_dia.offsets, tiny_x,
+                                 tiny.shape[0], tiny_dia.off_t),
+        "K8 spmv_bsr, 32 x 32 stencil": lambda: spmv_bsr.spmv_bsr(
+            tiny_bsr, tiny_x),
         "K1 gather, 1 tile": lambda: shuffle.gather(src, idx),
         "index_select, 1 tile": lambda: tiles.index_select(0, il),
         "index_copy_, 1 tile":
             lambda: tiles.index_copy_(0, il, out.view(1, 1024)),
         "x[idx], 1 tile": lambda: src[idx_l],
     }
-    # the main path's own calls: K12 and K11 on R-MAT-14's v2 path, K6,
-    # K5 and K1 on the stencil ELL, each beside its library call
+    # the main path's own calls: K12, K11 and K4 on R-MAT-14's v2 path,
+    # K6, K5 and K1 on the stencil ELL, K7 on the stencil DIA and K8 on the
+    # FEM BSR, each beside its library call where there is one
     for k, path, lib in (("gather_tiles8", "spgemm", "index_select"),
                          ("build_bank", "spgemm", "b_val[idx]"),
+                         ("runcopy", "spgemm", "src[idx]"),
                          ("scatter_tiles", "stencil-ell-sigma0",
                           "index_copy_"),
                          ("gather_subset", "stencil-ell-sigma0", "src[idx]"),
-                         ("gather", "stencil-ell-sigma0", "x[idx]")):
+                         ("gather", "stencil-ell-sigma0", "x[idx]"),
+                         ("spmv_dia", "stencil-dia", None),
+                         ("spmv_bsr", "fem-bsr128", "sparse_bsr_tensor @ x")):
         calls = [a for p, a in s.calls[k] if p == path]
         if calls:
             args = s.fresh(k, calls[0])
             steps[f"{k} on {path}"] = \
                 lambda w=s.wrappers[k], a=args: w(*a)
-            steps[f"{lib} on {path}"] = s.library_call(k, args)
+            if lib:
+                steps[f"{lib} on {path}"] = s.library_call(k, args)
 
     us = {what: [] for what in steps}
     for _ in range(LAUNCH_ROUNDS):

@@ -16,9 +16,8 @@ re-blockification).  K10 ``gather_tiles.windowed_gather`` stands alone,
 as its TPU counterpart does.
 K9 multiplies on the tensor cores: float32 as three TF32 products per
 product (3xTF32, float32 accuracy), float64 on DMMA.
+K10 runs a warp per row below a 4 KB window, a thread per output from it.
 A wrapper runs the plain version for CPU tensors; for CUDA tensors it
-launches its kernel (and adds one to its ``launches`` count) or raises.
-K1, K2, K3, K5, K6, K9, K11 and K12 launch through ``cuda_lib.launch``;
-K4, K7, K8 and K10 still through ``cuda_lib.entry``, ``stream`` and
-``ptr``.
+launches its kernel through ``cuda_lib.launch`` (and adds one to its
+``launches`` count) or raises.
 """

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "nsp_spmv_dia": [_P, _I64, _P, _I32, _P, _I64, _P, _I64, _P],
     "nsp_spmv_bsr": [_P, _P, _P, _I64, _P, _I64, _P, _I64, _P],
     "nsp_spgemm_bsr": [_P, _P, _P, _P, _P, _I64, _I32, _P, _P],
-    "nsp_windowed_gather": [_P, _I64, _P, _I32, _I64, _P, _P],
+    "nsp_windowed_gather": [_P, _I64, _P, _I32, _I64, _P, _I32, _P],
     "nsp_build_bank": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P],
     "nsp_gather_tiles8": [_P, _I64, _P, _I64, _P, _P],
     "nsp_runcopy_kfold": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P],
@@ -114,15 +114,6 @@ KERNELS = _KernelLib()
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
 
-def entry(name: str, dtype: torch.dtype):
-    """The C entry point ``name`` for values of ``dtype``."""
-    suffix = _SUFFIX.get(dtype)
-    if suffix is None:
-        raise TypeError(f"{name}: values must be float32 or float64, got "
-                        f"{dtype}")
-    return getattr(KERNELS.get(), name + suffix)
-
-
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error."""
     if rc != 0:
@@ -130,33 +121,12 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def require_cuda(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous CUDA tensors on one device, int32 indices."""
-    dev = tensors[0].device
-    for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{what}: all tensors must be on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: tensors must be contiguous")
-        if not t.is_floating_point() and t.dtype != torch.int32:
-            raise ValueError(f"{what}: index arrays must be int32")
-
-
-# -- the lean launch path ----------------------------------------------------
+# -- the launch path ---------------------------------------------------------
 #
 # What a launch costs the host beyond the C call itself (chip_smoke.py's
-# launch-cost phase times each step): ``entry`` takes a lock and a getattr,
-# ``torch.cuda.device`` a device switch in and out, ``stream`` builds a
-# ``torch.cuda.Stream`` (which switches the device again), ``ptr`` a
-# ``c_void_p`` per pointer.  ``launch`` does none of these.
+# launch-cost phase times each step): one validation pass over the
+# arguments, a dict lookup of the entry point, the raw current stream, and
+# a device switch only when the tensors lie on another card.
 
 _RESOLVED = {}  # (name, dtype): the C entry point
 
@@ -166,7 +136,11 @@ def resolve(name: str, dtype: torch.dtype):
     the kernel library once per (name, dtype)."""
     fn = _RESOLVED.get((name, dtype))
     if fn is None:
-        fn = _RESOLVED[name, dtype] = entry(name, dtype)
+        suffix = _SUFFIX.get(dtype)
+        if suffix is None:
+            raise TypeError(f"{name}: values must be float32 or float64, "
+                            f"got {dtype}")
+        fn = _RESOLVED[name, dtype] = getattr(KERNELS.get(), name + suffix)
     return fn
 
 

@@ -48,16 +48,13 @@ def spmv_dia(vals: torch.Tensor, offsets, x: torch.Tensor, m: int,
         off_t = torch.tensor(offsets, dtype=torch.int32, device=vals.device)
     if off_t.numel() != len(offsets) or off_t.dtype != torch.int32:
         raise ValueError("spmv_dia: off_t must hold the offsets as int32")
-    cuda_lib.require_cuda("spmv_dia", vals, x, off_t)
     y = torch.empty(m, dtype=vals.dtype, device=vals.device)
     if m:
-        fn = cuda_lib.entry("nsp_spmv_dia", vals.dtype)
-        with torch.cuda.device(vals.device):
-            rc = fn(cuda_lib.ptr(vals), vals.shape[1],
-                    cuda_lib.ptr(off_t), len(offsets), cuda_lib.ptr(x),
-                    x.numel(), cuda_lib.ptr(y), m, cuda_lib.stream(vals))
-        cuda_lib.check(rc, "spmv_dia")
+        cuda_lib.launch("spmv_dia", "nsp_spmv_dia", vals, vals.shape[1],
+                        off_t, len(offsets), x, x.numel(), y, m)
         spmv_dia.launches += 1
+    else:
+        cuda_lib.validate("spmv_dia", vals, off_t, x)
     return y
 
 

@@ -9,7 +9,8 @@ replace a gather the TPU lacks with roll-scans over a window or band;
 Hopper gathers in hardware, so K5 reads each slot's source directly and
 one launch serves every class of a flat gather (it takes a list of
 equal units: ``flat_gather`` lists those of all its classes), and K10
-reads ``win[t, idx]`` directly.  K5 and K6 update their output in place,
+reads ``win[t, idx]`` directly, a warp per row (a thread per output
+from a 4 KB window).  K5 and K6 update their output in place,
 as the JAX outputs are aliased.
 """
 
@@ -166,6 +167,22 @@ def windowed_gather_plain(win: torch.Tensor, idx: torch.Tensor,
                        0)
 
 
+# K10's routes, by the span of a row's window in bytes (window x value
+# size): a warp per row reading the window directly, or a thread per
+# output (the first design).  tools/k10_variants.py on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md, K10): from 4 KB the thread route 0.7-3%
+# faster than direct, below it 7-60% slower.
+K10_DIRECT, K10_THREAD = 0, 1
+THREAD_BYTES = 4096  # a thread per output from this span
+
+
+def windowed_gather_route(window: int, itemsize: int) -> int:
+    """K10's route for a window of ``window`` values of ``itemsize``
+    bytes: ``K10_DIRECT`` or ``K10_THREAD``.  It depends on the window
+    and the value size alone, never on the data."""
+    return K10_DIRECT if window * itemsize < THREAD_BYTES else K10_THREAD
+
+
 def windowed_gather(win: torch.Tensor, idx: torch.Tensor,
                     window: int) -> torch.Tensor:
     """K10: ``out[t, l] = win[t, idx[t, l]]`` for ``win`` of shape (T,
@@ -175,7 +192,8 @@ def windowed_gather(win: torch.Tensor, idx: torch.Tensor,
     taken (the TPU kernel needs a divisor or a multiple of 128).
 
     CPU tensors take :func:`windowed_gather_plain`; CUDA tensors launch the
-    kernel (``csrc/windowed_gather.cu``) or raise.
+    kernel (``csrc/windowed_gather.cu``, on the route of
+    :func:`windowed_gather_route`) or raise.
     """
     if win.dim() != 2 or idx.dim() != 2 or idx.shape[1] != 128 \
             or idx.shape[0] != win.shape[0]:
@@ -186,16 +204,14 @@ def windowed_gather(win: torch.Tensor, idx: torch.Tensor,
                          f"[1, {win.shape[1]}]")
     if win.device.type == "cpu":
         return windowed_gather_plain(win, idx, window)
-    cuda_lib.require_cuda("windowed_gather", win, idx)
     out = torch.empty(idx.shape, dtype=win.dtype, device=win.device)
     if idx.numel():
-        fn = cuda_lib.entry("nsp_windowed_gather", win.dtype)
-        with torch.cuda.device(win.device):
-            rc = fn(cuda_lib.ptr(win), win.shape[1], cuda_lib.ptr(idx),
-                    window, idx.shape[0], cuda_lib.ptr(out),
-                    cuda_lib.stream(win))
-        cuda_lib.check(rc, "windowed_gather")
+        cuda_lib.launch("windowed_gather", "nsp_windowed_gather", win,
+                        win.shape[1], idx, window, idx.shape[0], out,
+                        windowed_gather_route(window, win.element_size()))
         windowed_gather.launches += 1
+    else:
+        cuda_lib.validate("windowed_gather", win, idx, out)
     return out
 
 

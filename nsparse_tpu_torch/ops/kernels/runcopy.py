@@ -190,18 +190,13 @@ def runcopy(plan: RunCopyPlan, src: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"source of {src.numel()} < plan's {plan.n_src}")
     if src.device.type == "cpu":
         return runcopy_plain(plan, src)
-    cuda_lib.require_cuda("runcopy", src, plan.src_off, plan.dst, plan.len)
     out = torch.empty(plan.n_out, dtype=src.dtype, device=src.device)
     if plan.n_out:
-        fn = cuda_lib.entry("nsp_runcopy", src.dtype)
-        with torch.cuda.device(src.device):
-            rc = fn(
-                cuda_lib.ptr(src), cuda_lib.ptr(plan.src_off),
-                cuda_lib.ptr(plan.dst), cuda_lib.ptr(plan.len), plan.n_runs,
-                cuda_lib.ptr(out), plan.n_out, cuda_lib.stream(src),
-            )
-        cuda_lib.check(rc, "runcopy")
+        cuda_lib.launch("runcopy", "nsp_runcopy", src, plan.src_off,
+                        plan.dst, plan.len, plan.n_runs, out, plan.n_out)
         runcopy.launches += 1
+    else:
+        cuda_lib.validate("runcopy", src, plan.src_off, plan.dst, plan.len)
     return out
 
 

@@ -46,17 +46,13 @@ def spmv_bsr(a: BSR, x: torch.Tensor) -> torch.Tensor:
             or a.block_col.numel() != a.nblocks:
         raise ValueError("spmv_bsr: tiles, block columns and block rows "
                          "do not match the shape")
-    cuda_lib.require_cuda("spmv_bsr", a.data, a.block_col, a.block_rpt, x)
     y = torch.empty(m, dtype=a.dtype, device=x.device)
     if m:
-        fn = cuda_lib.entry("nsp_spmv_bsr", a.dtype)
-        with torch.cuda.device(x.device):
-            rc = fn(cuda_lib.ptr(a.data), cuda_lib.ptr(a.block_col),
-                    cuda_lib.ptr(a.block_rpt), a.n_block_rows,
-                    cuda_lib.ptr(x), n, cuda_lib.ptr(y), m,
-                    cuda_lib.stream(x))
-        cuda_lib.check(rc, "spmv_bsr")
+        cuda_lib.launch("spmv_bsr", "nsp_spmv_bsr", a.data, a.block_col,
+                        a.block_rpt, a.n_block_rows, x, n, y, m)
         spmv_bsr.launches += 1
+    else:
+        cuda_lib.validate("spmv_bsr", a.data, a.block_col, a.block_rpt, x)
     return y
 
 

@@ -356,6 +356,38 @@ def test_windowed_gather_matches_jax(window, dtype):
                                   np.take_along_axis(win, idx, 1))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_windowed_gather_wide_window_matches_jax(dtype):
+    """K10's plain version against the JAX roll-scan kernel in interpret
+    mode at window 512 (four lane groups; 8 rows), bit for bit."""
+    rng = np.random.default_rng(512)
+    win = rng.standard_normal((8, 512)).astype(dtype)
+    idx = rng.integers(0, 512, (8, 128)).astype(np.int32)
+    want = np.asarray(j_windowed_gather(jnp.asarray(win), jnp.asarray(idx),
+                                        512, tile_rows=8))
+    got = gather_tiles.windowed_gather(torch.from_numpy(win),
+                                       torch.from_numpy(idx), 512)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_windowed_gather_window_not_dividing_128(dtype):
+    """A window of 100 (neither a divisor nor a multiple of 128, which the
+    TPU kernel refuses) in rows of 128 values: equal to
+    ``np.take_along_axis``; the row's columns past the window are never
+    read."""
+    rng = np.random.default_rng(100)
+    win = rng.standard_normal((8, 128)).astype(dtype)
+    idx = rng.integers(0, 100, (8, 128)).astype(np.int32)
+    got = gather_tiles.windowed_gather(torch.from_numpy(win),
+                                       torch.from_numpy(idx), 100).numpy()
+    np.testing.assert_array_equal(got, np.take_along_axis(win, idx, 1))
+    win[:, 100:] = np.nan
+    again = gather_tiles.windowed_gather(torch.from_numpy(win),
+                                         torch.from_numpy(idx), 100).numpy()
+    np.testing.assert_array_equal(again, got)
+
+
 def test_windowed_gather_outside_the_window_gives_zero():
     """An index outside [0, window) gives 0 and reads nothing outside its
     row, also in a window narrower than the row."""

@@ -1,8 +1,9 @@
-"""The lean launch path (``cuda_lib.launch``) of K6 scatter_tiles, K12
-gather_tiles8, K11 build_bank, K5 gather_subset, K1 gather, K9
-spgemm_bsr_blocks, K3 fused_class (both modes) and K2 (run form, piece
-and flat modes), without a card and without building the kernel
-library.
+"""The launch path (``cuda_lib.launch``) of every kernel wrapper: K6
+scatter_tiles, K12 gather_tiles8, K11 build_bank, K5 gather_subset, K1
+gather, K9 spgemm_bsr_blocks, K3 fused_class (both modes), K2 (run form,
+piece and flat modes), K4 runcopy (fixed mode), K7 spmv_dia, K8 spmv_bsr
+and K10 windowed_gather (and its route), without a card and without
+building the kernel library.
 
 The library is never built or loaded here: every test that could reach it
 stubs ``cuda_lib.KERNELS`` (and clears the resolved-entry cache), so a
@@ -14,6 +15,7 @@ shapes than ``tests/test_torch_gather.py`` covers.
 import types
 
 import numpy as np
+import scipy.sparse as sp
 import pytest
 
 import jax.numpy as jnp
@@ -25,9 +27,12 @@ import nsparse_tpu_torch as nt
 from nsparse_tpu_torch.ops.kernels import (
     bsr_blocks,
     cuda_lib,
+    dia,
     gather_tiles,
     piecewise,
+    runcopy,
     shuffle,
+    spmv_bsr,
     window_fused,
 )
 
@@ -42,7 +47,9 @@ def _keep_launch_counts():
                 shuffle.gather, bsr_blocks.spgemm_bsr_blocks,
                 window_fused.fused_class_apply,
                 window_fused.fused_class_expand, piecewise.expand_pieces,
-                piecewise.expand_pieces_flat, piecewise.piecewise_expand)
+                piecewise.expand_pieces_flat, piecewise.piecewise_expand,
+                runcopy.runcopy, dia.spmv_dia, spmv_bsr.spmv_bsr,
+                gather_tiles.windowed_gather)
     saved = [w.launches for w in wrappers]
     yield
     for w, n in zip(wrappers, saved):
@@ -251,6 +258,35 @@ def _k2_runs(d):
                                       torch.zeros(9, device=d))
 
 
+def _k4(d):
+    """K4's fixed mode: two runs of a 2048-value source into 2048 slots."""
+    plan = runcopy.build_runcopy_plan([0, 1500], [1024, 300], 2048,
+                                      dst=[0, 1024]).to(d)
+    return runcopy.runcopy(plan, torch.zeros(2048, device=d))
+
+
+def _k7(d, dtype=torch.float32, m=100):
+    """K7 on three diagonals of a 100 x 100 matrix (``m`` rows)."""
+    return dia.spmv_dia(torch.zeros(3, 100, dtype=dtype, device=d),
+                        (-1, 0, 1), torch.zeros(100, dtype=dtype, device=d),
+                        m)
+
+
+def _k8(d):
+    """K8 on a 300 x 200 BSR of (128, 128) tiles (a tile per block row)."""
+    a = nt.BSR.from_csr(nt.CSR.from_scipy(
+        sp.random(300, 200, density=0.01, format="csr", dtype=np.float32,
+                  random_state=0)), (128, 128))
+    return spmv_bsr.spmv_bsr(a.to(d), torch.zeros(200, device=d))
+
+
+def _k10(d, window=32, dtype=torch.float32, rows=4):
+    """K10 on ``rows`` rows of max(window, 128) values."""
+    return gather_tiles.windowed_gather(
+        torch.zeros(rows, max(window, 128), dtype=dtype, device=d),
+        torch.zeros(rows, 128, dtype=torch.int32, device=d), window)
+
+
 # the argument of the null ``other`` pointer: the int 0, in that slot only
 K5_NULL_OTHER = 6
 
@@ -274,8 +310,14 @@ K5_NULL_OTHER = 6
     (_k2_pieces, "nsp_expand_pieces", None),
     (lambda d: _k2_pieces(d, flat=True), "nsp_expand_pieces", None),
     (_k2_runs, "nsp_expand", None),
+    (_k4, "nsp_runcopy", None),
+    (_k7, "nsp_spmv_dia", None),
+    (lambda d: _k7(d, torch.float64), "nsp_spmv_dia", None),
+    (_k8, "nsp_spmv_bsr", None),
+    (_k10, "nsp_windowed_gather", None),
 ], ids=["K6", "K12", "K5", "K5-null-other", "K11", "K1", "K9", "K3",
-        "K3-v2", "K2-pieces", "K2-flat", "K2-runs"])
+        "K3-v2", "K2-pieces", "K2-flat", "K2-runs", "K4", "K7", "K7-f64",
+        "K8", "K10"])
 def test_wrappers_pass_the_c_signature(monkeypatch, call, c_name, null_slot):
     """The wrappers on the lean path hand ``launch`` one argument per C
     parameter before the stream: a tensor for each pointer, an int for
@@ -344,6 +386,34 @@ def test_expand_from_bank_launches_k2_once(monkeypatch, flat):
     assert launches == 1
 
 
+# K10's route codes, as its C entry reads them (csrc/windowed_gather.cu)
+DIRECT, THREAD = 0, 1
+
+
+@pytest.mark.parametrize("window, dtype, route", [
+    (1, torch.float32, DIRECT), (32, torch.float32, DIRECT),
+    (100, torch.float32, DIRECT), (512, torch.float32, DIRECT),
+    (1023, torch.float32, DIRECT), (1024, torch.float32, THREAD),
+    (1, torch.float64, DIRECT), (128, torch.float64, DIRECT),
+    (384, torch.float64, DIRECT), (511, torch.float64, DIRECT),
+    (512, torch.float64, THREAD), (1024, torch.float64, THREAD)])
+def test_k10_route_depends_on_the_window_and_dtype(monkeypatch, window,
+                                                   dtype, route):
+    """K10 hands ``launch`` its sizes and the route: a warp per row
+    reading the window directly below a 4 KB span (f32 windows up to
+    1023, f64 up to 511), a thread per output from 4 KB."""
+    seen = []
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda what, name, *args: seen.append(args))
+    before = gather_tiles.windowed_gather.launches
+    out = _k10("meta", window, dtype, rows=3)
+    (win, cols, idx, w, rows, got, took), = seen
+    assert (cols, w, rows) == (max(window, 128), window, 3)
+    assert got is out and out.shape == (3, 128) and out.dtype == dtype
+    assert took == route
+    assert gather_tiles.windowed_gather.launches == before + 1
+
+
 def test_k5_passes_its_sizes(monkeypatch):
     """K5's sizes: the source's length, the unit count and size, and
     ``other``'s length (0 without one)."""
@@ -381,12 +451,20 @@ def test_k5_passes_its_sizes(monkeypatch):
     lambda: _k2_pieces("meta"),
     lambda: _k2_pieces("meta", flat=True),
     lambda: _k2_runs("meta"),
+    lambda: _k4("meta"),
+    lambda: _k7("meta"),
+    lambda: _k7("meta", torch.float64),
+    lambda: _k7("meta", m=0),
+    lambda: _k8("meta"),
+    lambda: _k10("meta"),
+    lambda: _k10("meta", rows=0),
 ], ids=["K6", "K6-empty", "K12-empty", "K5", "K5-empty", "K5-null-other",
         "K11", "K1", "K1-empty", "K9", "K9-no-pairs", "K3", "K3-v2",
-        "K2-pieces", "K2-flat", "K2-runs"])
+        "K2-pieces", "K2-flat", "K2-runs", "K4", "K7", "K7-f64", "K7-empty",
+        "K8", "K10", "K10-empty"])
 def test_wrappers_refuse_a_non_cuda_device(no_library, call):
-    """Off the CPU, K6, K12, K5, K11, K1, K9, K3 and K2 launch on a card
-    or raise, also when there is nothing to move; no launch is counted."""
+    """Off the CPU, every wrapper launches on a card or raises, also when
+    there is nothing to move; no launch is counted."""
     def counts():
         return (gather_tiles.scatter_tiles.launches,
                 gather_tiles.gather_tiles8.launches,
@@ -397,7 +475,9 @@ def test_wrappers_refuse_a_non_cuda_device(no_library, call):
                 window_fused.fused_class_expand.launches,
                 piecewise.expand_pieces.launches,
                 piecewise.expand_pieces_flat.launches,
-                piecewise.piecewise_expand.launches)
+                piecewise.piecewise_expand.launches, runcopy.runcopy.launches,
+                dia.spmv_dia.launches, spmv_bsr.spmv_bsr.launches,
+                gather_tiles.windowed_gather.launches)
 
     before = counts()
     with pytest.raises(ValueError, match="must be on one CUDA device"):

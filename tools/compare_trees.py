@@ -6,17 +6,20 @@
 DIR is the root of a checkout of the repository (an unpacked ``git
 archive`` of another commit, or ``.``).  The script imports DIR's
 ``nsparse_tpu_torch`` and DIR's own ``chip_smoke.py``, runs that script's
-path phases (SpGEMM window and the other ESC layouts; SpMV and block
-SpGEMM unless every KERNEL is a window kernel, K3 or K2's piece modes),
-which print their path times and record each kernel's calls, and then,
-from this tree's ``chip_smoke.py``, on the calls DIR's paths made: the
-phase of each KERNEL that has one (K9 spgemm_bsr_blocks: ``k9_phase``,
-without its tensor-core check; K1 gather: ``k1_phase``; K11 build_bank
-and K5 gather_subset: ``bank_subset_phase``; K3 fused_class and
-fused_class_v2, K2 expand_pieces and expand_pieces_flat:
-``k3_k2_phase``), the launch-cost phase (not for the window kernels
-alone), and the kernel table's rows of
-KERNEL (default: fused_class fused_class_v2 expand_pieces
+path phases that the KERNELs run on, which print their path times and
+record each kernel's calls:
+  SpGEMM window and the other ESC layouts   K3 fused_class and
+      fused_class_v2, K2 expand_pieces and expand_pieces_flat, K4 runcopy;
+  SpMV                                      K7 spmv_dia, K8 spmv_bsr;
+  SpGEMM, SpMV and block SpGEMM (every path)  any other kernel but K10;
+and then, from this tree's ``chip_smoke.py``, on the calls DIR's paths
+made: the phase of each KERNEL that has one (K9 spgemm_bsr_blocks:
+``k9_phase``, without its tensor-core check; K1 gather: ``k1_phase``; K11
+build_bank and K5 gather_subset: ``bank_subset_phase``; K3 and K2's piece
+modes: ``k3_k2_phase``; K10 windowed_gather: ``windowed_gather_phase``,
+which runs DIR's K10 alone and needs no path), the launch-cost phase
+(when a KERNEL runs on the SpMV or block paths, or is K4), and the kernel
+table's rows of KERNEL (default: fused_class fused_class_v2 expand_pieces
 expand_pieces_flat), every bound by this tree's rule (for K3, the rule of
 the tables the tree's plans hold).
 Run it once per tree in one call of the card, in turns (parent, change,
@@ -58,16 +61,24 @@ def main() -> None:
     print(f"tree {root}: {card}", flush=True)
     s = tree.Smoke(torch, card)
     # this tree's bounds on the other tree's calls (K9's f32 bound is the
-    # 3xTF32 one), so that both trees' rows are read against the same
+    # 3xTF32 one), so that both trees' rows are read against the same, and
+    # its library calls (K10's clamps indices outside the window, which
+    # torch.gather would assert on)
     s.bound_ms = types.MethodType(this.Smoke.bound_ms, s)
+    s.library_call = types.MethodType(this.Smoke.library_call, s)
     s.cuda_lib.KERNELS.get()
-    # the window kernels need only the SpGEMM paths (and no launch-cost
-    # phase); any other kernel runs every path
+    # the paths each kernel runs on (K10 runs alone, in its own phase)
     window = {"fused_class", "fused_class_v2", "expand_pieces",
               "expand_pieces_flat"}
-    phases = [tree.spgemm_phase, tree.esc_layout_phases]
-    if not set(kernels) <= window:
-        phases += [tree.spmv_phases, tree.bsr_spgemm_phases]
+    spgemm_only, spmv_only = window | {"runcopy"}, {"spmv_dia", "spmv_bsr"}
+    on_paths = set(kernels) - {"windowed_gather"}
+    phases = []
+    if on_paths - spmv_only:
+        phases += [tree.spgemm_phase, tree.esc_layout_phases]
+    if on_paths - spgemm_only:
+        phases.append(tree.spmv_phases)
+    if on_paths - spgemm_only - spmv_only:
+        phases.append(tree.bsr_spgemm_phases)
     if "spgemm_bsr_blocks" in kernels:
         # the other tree's K9 may predate the tensor cores
         phases.append(functools.partial(this.k9_phase, sass=False))
@@ -77,7 +88,9 @@ def main() -> None:
         phases.append(this.bank_subset_phase)
     if window & set(kernels):
         phases.append(this.k3_k2_phase)
-    if not set(kernels) <= window:
+    if "windowed_gather" in kernels:
+        phases.append(this.windowed_gather_phase)
+    if on_paths - window:
         phases.append(this.launch_cost_phase)
     for phase in phases:
         t0 = time.perf_counter()
