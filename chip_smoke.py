@@ -38,7 +38,20 @@ Phases (any failure exits non-zero before the final line):
        spgemm-oneshot           ``nt.spgemm(a, a)``, the device planner:
                                 no kernel launched; plan and numeric phase
                                 timed whole beside cuSPARSE;
-  3c. K4's K-fold mode alone on 2^24 output values, equal to its plain
+  3c. the plan cache: the five host plans above (window v2 and v1,
+     global and sort on R-MAT-14, global unaligned on R-MAT-16) saved
+     (file MB, host s) and loaded (host s, index tables checked), run on
+     cuda:0 with C equal to the unsaved plan's (``torch.equal``) and the
+     launch counts of its path; ``spgemm_plan_cached`` twice on
+     ``data/circuit_zipf.mtx`` (f32): a miss, then a hit, both Cs checked
+     on the card (``check_spgemm_answer_device``), K5/K1/K6 counted;
+  3d. the CLI in subprocesses: ``spgemm --plan-cache`` twice on
+     circuit_zipf (only the second a ``[cache hit]``, both pass), ``spmv
+     --profile`` on the stencil as DIA (a Chrome trace holding a CUDA
+     kernel event), ``spmv-xla`` and ``spgemm-xla`` (cuSPARSE through
+     ``torch.sparse_csr_tensor``); ``time_chained`` and ``time_marginal``
+     of the stencil DIA SpMV beside ``time_cuda``;
+  3e. K4's K-fold mode alone on 2^24 output values, equal to its plain
      version bit for bit;
   4. SpMV, float32 unless marked, each path checked against scipy (rtol
      1e-5, or 1e-8 in float64, scaled by |A||x|):
@@ -130,6 +143,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -393,6 +407,9 @@ class Smoke:
         self.calls = {k: [] for k in KERNELS}     # [(path, args)]
         self.launches = {k: 0 for k in KERNELS}
         self.path_launches = {}                   # path: {kernel: count}
+        # the host plans of the SpGEMM paths, for the plan cache phase:
+        # name: (A, plan, the path whose launch counts it must repeat)
+        self.host_plans = {}
 
     # -- launch counts ------------------------------------------------------
 
@@ -955,6 +972,7 @@ def spgemm_phase(s: Smoke) -> None:
         fail(f"v2 launches {s.path_launches['spgemm']}, expected {want}")
     check_c(s, c, a, "C (v2)")
     s.rmat14 = (a, a_d, c)  # the other R-MAT-14 layouts reuse the matrix
+    s.host_plans["window-v2"] = (a, plan, "spgemm")
 
     v2 = np.random.default_rng(SEED + 1).standard_normal(a.nnz)
     a2 = a.with_values(torch.from_numpy(v2.astype(np.float32)))
@@ -974,6 +992,7 @@ def spgemm_phase(s: Smoke) -> None:
         sw.FUSED_BANK_BUDGET = budget
     if plan1.win.fused_expand:
         fail("FUSED_BANK_BUDGET = 0 did not pin the v1 form")
+    s.host_plans["window-v1"] = (a, plan1, "spgemm-v1")
     plan1_d = plan1.to(s.dev)
 
     def v1_run():
@@ -1118,6 +1137,22 @@ def global_phase(s: Smoke, path: str, a, plan) -> object:
         global_launches(pw))
 
 
+def sort_launches(srt) -> dict:
+    """The launches of a host sort plan's numeric phase: per gather plan
+    (the B fill without ``other``, the A values with it) K5 once where it
+    has class units, and K1 (twice with ``other``) and K6 once where it
+    has fallback tiles."""
+    want = {}
+    for gp, with_other in ((srt.bv_gp, False), (srt.av_gp, True)):
+        n5 = k5_launches([gp])
+        fb = int(bool(gp.fb_ids.numel()))
+        for k, n in (("gather_subset", n5), ("gather", (1 + with_other) * fb),
+                     ("scatter_tiles", fb)):
+            if n:
+                want[k] = want.get(k, 0) + n
+    return want
+
+
 def esc_layout_phases(s: Smoke) -> None:
     """The host plan's other layouts and the one-shot device planner.
     spgemm-global: R-MAT-14 in the global slab layout (aligned pieces),
@@ -1152,6 +1187,7 @@ def esc_layout_phases(s: Smoke) -> None:
           f"(within 1e-5: {rel <= 1e-5})", flush=True)
     if not same or rel > 1e-5:
         fail("the global and window layouts give different C")
+    s.host_plans["global"] = (a, plan, "spgemm-global")
     del plan, c
 
     a16 = host_timed("generate R-MAT-16 (edge factor 4)", lambda: nt.rmat_csr(
@@ -1167,6 +1203,7 @@ def esc_layout_phases(s: Smoke) -> None:
         fail(f"R-MAT-16: counts {got}, expected {UNALIGNED_COUNTS} and the "
              "unaligned mode")
     global_phase(s, "spgemm-global-unaligned", a16, plan)
+    s.host_plans["global-unaligned"] = (a16, plan, "spgemm-global-unaligned")
     del plan, a16
 
     plan = host_timed("sort plan R-MAT-14", lambda: nt.spgemm_plan(
@@ -1174,16 +1211,10 @@ def esc_layout_phases(s: Smoke) -> None:
     if plan.layout != "sort":
         fail(f"R-MAT-14 shuffle=False: layout {plan.layout}, not sort")
     srt = plan.srt
-    want = {}
-    for gp, with_other in ((srt.bv_gp, False), (srt.av_gp, True)):
-        n5 = k5_launches([gp])
-        fb = int(bool(gp.fb_ids.numel()))
-        for k, n in (("gather_subset", n5), ("gather", (1 + with_other) * fb),
-                     ("scatter_tiles", fb)):
-            if n:
-                want[k] = want.get(k, 0) + n
+    want = sort_launches(srt)
     if set(want) != gather_kernels([srt.av_gp, srt.bv_gp]):
         fail(f"sort plan launches {want} disagree with gather_kernels")
+    s.host_plans["sort"] = (a, plan, "spgemm-sort")
     print(f"spgemm-sort: gather plans av {srt.av_gp.class_fracs}, bv "
           f"{srt.bv_gp.class_fracs}", flush=True)
     plan_d = plan.to(s.dev)
@@ -1224,6 +1255,146 @@ def esc_layout_phases(s: Smoke) -> None:
           f"call; cuSPARSE CSR A @ A (plans in every call too) "
           f"{fmt_ms(lib_ms)} ms", flush=True)
     profile_calls(torch, oneshot, "one-shot SpGEMM", calls=3)
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CIRCUIT = os.path.join(ROOT, "data", "circuit_zipf.mtx")
+
+
+def plan_cache_phase(s: Smoke) -> None:
+    """The SpGEMM paths' host plans through the plan cache: each saved
+    (file MB, host s), loaded (host s, its index tables checked), moved to
+    the card and run; C equal to the unsaved plan's (``torch.equal``) and
+    the launch counts equal to its path's.  Then ``spgemm_plan_cached``
+    twice on ``data/circuit_zipf.mtx`` (f32) into one directory: a miss,
+    then a hit, both Cs checked on the card against scipy (|A||B| bound),
+    the numeric phase's K5, K1 and K6 launches counted."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.tune import spgemm_cache as sc
+    from nsparse_tpu_torch.utils.checking import (
+        check_spgemm_answer_device,
+        spgemm_abs_oracle,
+    )
+
+    with tempfile.TemporaryDirectory() as d:
+        for name, (a, plan, orig) in s.host_plans.items():
+            path = os.path.join(d, f"{name}.npz")
+            t0 = time.perf_counter()
+            sc.save_spgemm_plan(plan, path)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = sc.load_spgemm_plan(path)
+            t_load = time.perf_counter() - t0
+            mb = os.path.getsize(path) / 1e6
+            os.remove(path)
+            a_d, want = a.to(s.dev), s.path_launches[orig]
+            c_ref = nt.spgemm_numeric(plan.to(s.dev), a_d, a_d)
+            loaded_d = loaded.to(s.dev)
+            c = s.counted(lambda: nt.spgemm_numeric(loaded_d, a_d, a_d),
+                          list(want), f"cache-{name}", exact=want)
+            same = all(torch.equal(getattr(c, f), getattr(c_ref, f))
+                       for f in ("rpt", "col", "val"))
+            counts = s.path_launches[f"cache-{name}"] == want
+            print(f"plan cache {name}: {plan.layout} layout, {mb:.1f} MB, "
+                  f"save {t_save:.2f} s, load {t_load:.2f} s (host, tables "
+                  f"checked); C equal to the unsaved plan's (torch.equal): "
+                  f"{same}; launches equal to {orig}'s: {counts}",
+                  flush=True)
+            if not same or not counts:
+                fail(f"plan cache {name}: the loaded plan differs")
+            del loaded, loaded_d, c, c_ref
+        s.host_plans = {}
+
+        a = nt.read_mtx(CIRCUIT, dtype=np.float32)
+        a_d = a.to(s.dev)
+        ref, scale = nt.spgemm_oracle(a, a), spgemm_abs_oracle(a, a)
+        cdir = os.path.join(d, "circuit")
+        for want_hit in (False, True):
+            t0 = time.perf_counter()
+            plan, hit = sc.spgemm_plan_cached(a, a, cdir)
+            t_plan = time.perf_counter() - t0
+            what = "cache-circuit-" + ("hit" if hit else "miss")
+            if hit != want_hit or plan.layout != "sort":
+                fail(f"circuit_zipf: hit {hit}, layout {plan.layout}")
+            want = sort_launches(plan.srt)
+            plan_d = plan.to(s.dev)
+            c = s.counted(lambda: nt.spgemm_numeric(plan_d, a_d, a_d),
+                          list(want), what, exact=want)
+            ok = check_spgemm_answer_device(c, ref, abs_ref=scale)
+            print(f"{what}: {os.listdir(cdir)}, plan {t_plan:.3f} s host, "
+                  f"P {plan.n_products}, nnz(C) {plan.c_nnz}, launches "
+                  f"{s.path_launches[what]}; C vs scipy on the card (rtol "
+                  f"1e-5, |A||B| bound): {'pass' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok or s.path_launches[what] != want:
+                fail(f"{what}: C or launches wrong")
+
+
+def cli_lines(argv) -> str:
+    """Run the port's CLI in a subprocess on the card; its output, printed
+    indented (fails the run on a non-zero exit)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "nsparse_tpu_torch", "--precision", "single",
+         *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(f"cli: {' '.join(argv)} (rc {r.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s host)")
+    for line in r.stdout.splitlines():
+        print(f"  {line}")
+    if r.returncode:
+        print(r.stderr[-4000:], file=sys.stderr)
+        fail(f"cli {argv[0]} exited {r.returncode}")
+    return r.stdout
+
+
+def cli_phase(s: Smoke) -> None:
+    """The CLI on the card: ``spgemm --plan-cache`` twice on circuit_zipf
+    (a miss, then ``[cache hit]``, both pass), ``spmv --profile`` on the
+    2048 x 2048 stencil as DIA (a trace with a CUDA kernel event),
+    ``spmv-xla`` and ``spgemm-xla`` (the library yardsticks); then
+    ``time_chained`` and ``time_marginal`` of the stencil DIA SpMV beside
+    ``time_cuda``."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.utils.timing import time_chained, time_marginal
+
+    with tempfile.TemporaryDirectory() as d:
+        outs = [cli_lines(["spgemm", CIRCUIT, "--plan-cache", d, "--trials",
+                           "5"]) for _ in range(2)]
+        hits = ["[cache hit]" in o for o in outs]
+        passed = [o.rstrip().endswith("pass") for o in outs]
+        print(f"cli spgemm --plan-cache: cache hit {hits}, pass {passed}",
+              flush=True)
+        if hits != [False, True] or not all(passed):
+            fail("cli spgemm --plan-cache: expected a miss, then a hit")
+        tdir = os.path.join(d, "trace")
+        cli_lines(["spmv", f"gen:stencil:{STENCIL}:{STENCIL}", "--format",
+                   "dia", "--profile", tdir, "--trials", "21"])
+        kernels = 0
+        for path in glob.glob(os.path.join(tdir, "*.json")):
+            with open(path) as f:
+                kernels += sum(e.get("cat") == "kernel"
+                               for e in json.load(f)["traceEvents"])
+        print(f"cli spmv --profile: {kernels} CUDA kernel events in the "
+              "trace", flush=True)
+        if not kernels:
+            fail("cli spmv --profile: no CUDA kernel event in the trace")
+    cli_lines(["spmv-xla", CIRCUIT, "--trials", "21"])
+    cli_lines(["spgemm-xla", CIRCUIT, "--trials", "5"])
+
+    a = nt.stencil_csr(STENCIL, STENCIL, dtype=np.float32)
+    dia = nt.DIA.from_csr(a)
+    # scaled by 1/8: the chained products stay bounded
+    dia = dataclasses.replace(dia, vals=dia.vals / 8).to(s.dev)
+    x = torch.ones(a.shape[1], dtype=torch.float32, device=s.dev)
+    ms = {
+        "time_cuda": s.time_cuda(lambda: nt.spmv(dia, x), trials=TRIALS),
+        "time_chained": time_chained(lambda c, i: nt.spmv(dia, c), x),
+        "time_marginal": time_marginal(lambda c, i: nt.spmv(dia, c), x),
+    }
+    print(f"stencil DIA SpMV [{s.name}, {s.card}]: "
+          + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    if not all(np.isfinite(v) and v >= 0 for v in ms.values()):
+        fail(f"timing helpers: {ms}")
 
 
 def kfold_phase(s: Smoke) -> None:
@@ -2320,7 +2491,8 @@ def main() -> None:
     print(f"kernels built: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(s.cuda_lib.NVCC_FLAGS)})", flush=True)
 
-    for phase in (spgemm_phase, esc_layout_phases, kfold_phase, spmv_phases,
+    for phase in (spgemm_phase, esc_layout_phases, plan_cache_phase,
+                  cli_phase, kfold_phase, spmv_phases,
                   bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,
                   bank_subset_phase, k9_phase, k1_phase, k3_k2_phase,
                   launch_cost_phase):

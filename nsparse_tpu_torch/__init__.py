@@ -4,12 +4,14 @@ The JAX package ``nsparse_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``.  Ported so far: ESC SpGEMM (the host plan in
 its three layouts: row-localized windows, the global slab and the sort
 layout; the one-shot device planner, the default of ``spgemm``; their
-numeric phases), the block-sparse SpGEMM path (``spgemm_bsr``,
-``spgemm(..., method="bsr" | "auto")``) and the SpMV path (CSR, COO, ELL,
-DIA and BSR formats, the semirings, the ``spmv`` dispatch and its tuner).
-Their kernels are hand-written CUDA for Hopper, twelve sources in
-``csrc/`` (K1-K12, with K2's piece and flat modes and K4's K-fold mode),
-each beside its plain PyTorch version.
+numeric phases; the plan cache, ``tune/spgemm_cache.py``), the
+block-sparse SpGEMM path (``spgemm_bsr``, ``spgemm(..., method="bsr" |
+"auto")``), the SpMV path (CSR, COO, ELL, DIA and BSR formats, the
+semirings, the ``spmv`` dispatch and its tuner), Matrix Market reading
+and writing, the SuiteSparse fetcher, row binning, checking, timing and
+profiling utilities, and the CLI.  Their kernels are hand-written CUDA
+for Hopper, twelve sources in ``csrc/`` (K1-K12, with K2's piece and
+flat modes and K4's K-fold mode), each beside its plain PyTorch version.
 """
 
 from nsparse_tpu_torch.formats.bsr import BSR
@@ -23,7 +25,7 @@ from nsparse_tpu_torch.io.generate import (
     rmat_csr,
     stencil_csr,
 )
-from nsparse_tpu_torch.io.matrix_market import read_mtx
+from nsparse_tpu_torch.io.matrix_market import read_mtx, write_mtx
 from nsparse_tpu_torch.ops.spgemm import (
     SpgemmPlan,
     spgemm,
@@ -42,8 +44,17 @@ from nsparse_tpu_torch.ops.spgemm_bsr import (
     spgemm_bsr,
     spgemm_bsr_numeric,
 )
-from nsparse_tpu_torch.ops.spmv import spmm, spmv
+from nsparse_tpu_torch.ops.spmv import (
+    spmm,
+    spmm_bsr,
+    spmm_csr,
+    spmv,
+    spmv_csr,
+    spmv_dia,
+    spmv_ell,
+)
 from nsparse_tpu_torch.tune.autotune import autotune_spmv
+from nsparse_tpu_torch.tune.plan import Plan
 from nsparse_tpu_torch.utils.checking import (
     ans_check,
     check_spgemm_answer,
@@ -52,6 +63,9 @@ from nsparse_tpu_torch.utils.checking import (
     spmv_abs_oracle,
     spmv_oracle,
 )
+from nsparse_tpu_torch.utils.hostmem import tune_host_memory
+
+tune_host_memory()  # transparent hugepages off: faster plan builds
 
 __all__ = [
     "BSR",
@@ -60,6 +74,7 @@ __all__ = [
     "CSR",
     "DIA",
     "ELL",
+    "Plan",
     "SpgemmPlan",
     "ans_check",
     "autotune_spmv",
@@ -83,8 +98,14 @@ __all__ = [
     "spgemm_plan_device",
     "spgemm_symbolic_nnz",
     "spmm",
+    "spmm_bsr",
+    "spmm_csr",
     "spmv",
     "spmv_abs_oracle",
+    "spmv_csr",
+    "spmv_dia",
+    "spmv_ell",
     "spmv_oracle",
     "stencil_csr",
+    "write_mtx",
 ]

@@ -4,11 +4,17 @@
     python -m nsparse_tpu_torch --precision single spgemm gen:rmat:14:8
     python -m nsparse_tpu_torch --precision single spgemm gen:rmat:14:8 --planner host
     python -m nsparse_tpu_torch --precision single spgemm gen:fem:4096:16 --method bsr
+    python -m nsparse_tpu_torch --precision single spgemm data/circuit_zipf.mtx --plan-cache plans/
+    python -m nsparse_tpu_torch --precision single spmv gen:stencil:2048:2048 --format dia --profile traces/
+    python -m nsparse_tpu_torch --precision single spmv-xla data/circuit_zipf.mtx
+    python -m nsparse_tpu_torch --precision single spgemm-xla data/circuit_zipf.mtx
 
 Loads a matrix (a .mtx path, ``gen:stencil:NX:NY``, ``gen:rmat:SCALE:EF``,
 ``gen:fem:NODES:DOF`` or ``gen:random:M:N:DENSITY``), builds the format or
 the plan, times the product and checks it against the scipy oracle,
-printing the same lines and pass/FAIL verdict as the JAX CLI.  It runs on
+printing the same lines and pass/FAIL verdict as the JAX CLI.  ``spmv-xla``
+and ``spgemm-xla`` are the library yardsticks: one ``torch.sparse_csr_tensor``
+product (cuSPARSE on a card), timed and checked the same way.  It runs on
 the card (``--device cuda``, the default), timed with CUDA events; it
 refuses to start when no card is visible.  ``--device cpu`` runs it on
 the host, timed by the host clock and labelled as such.
@@ -110,6 +116,11 @@ def cmd_spmv(args) -> int:
           f"format={plan.format}")
 
     x_d = x.to(dev)
+    if args.profile:
+        from nsparse_tpu_torch.utils.profiling import profile_op
+
+        _, pms, tdir = profile_op(spmv, fmt, x_d, trace_dir=args.profile)
+        print(f"trace written to {tdir} ({pms:.4f} ms/iter)")
     ms, where = _timed(lambda: spmv(fmt, x_d), dev, args.trials)
     gf = 2.0 * a.nnz / (max(ms, 1e-6) * 1e-3) / 1e9
     line = f"SpMV [{plan.format}, {where}]: {ms:.4f} ms  {gf:.2f} GFLOPS"
@@ -206,12 +217,21 @@ def cmd_spgemm(args) -> int:
     if method == "bsr":
         return _spgemm_bsr(a, dev, args.trials)
 
-    # auto: the one-shot device planner, as the JAX CLI without a cache
-    planner = "device" if args.planner == "auto" else args.planner
+    # auto: the one-shot device planner, or with a plan cache the
+    # reusable host plan, as the JAX CLI chooses
+    planner = args.planner
+    if planner == "auto":
+        planner = "host" if args.plan_cache else "device"
     a_d = a.to(dev)
+    hit = False
     t0 = time.perf_counter()
     if planner == "host":
-        plan = spgemm_plan(a, a)
+        if args.plan_cache:
+            from nsparse_tpu_torch.tune.spgemm_cache import spgemm_plan_cached
+
+            plan, hit = spgemm_plan_cached(a, a, args.plan_cache)
+        else:
+            plan = spgemm_plan(a, a)
         sym_ms = (time.perf_counter() - t0) * 1e3
         plan_d = plan.to(dev)
     else:
@@ -223,7 +243,7 @@ def cmd_spgemm(args) -> int:
     print(f"nnz(A): {a.nnz}  intermediate products: {plan.n_products}  "
           f"nnz(C): {plan.c_nnz}")
     print(f"symbolic ({planner} plan, {plan.planner} planner): "
-          f"{sym_ms:.1f} ms")
+          f"{sym_ms:.1f} ms" + ("  [cache hit]" if hit else ""))
     print(_layout_line(plan, planner))
 
     ms, where = _timed(lambda: spgemm_numeric(plan_d, a_d, a_d), dev,
@@ -245,7 +265,82 @@ def cmd_spgemm(args) -> int:
                  f"{spec.name} roofline)")
     print(line)
 
-    return _check_spgemm(spgemm_numeric(plan_d, a_d, a_d), a)
+    from nsparse_tpu_torch.utils.checking import (
+        check_spgemm_answer_device,
+        spgemm_abs_oracle,
+        spgemm_oracle,
+    )
+
+    # checked on the device: only the verdicts come back
+    ok = check_spgemm_answer_device(
+        spgemm_numeric(plan_d, a_d, a_d), spgemm_oracle(a, a),
+        abs_ref=spgemm_abs_oracle(a, a))
+    print("pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
+def _library_csr(a, dev):
+    """``a`` as a ``torch.sparse_csr_tensor`` on ``dev``."""
+    a_d = a.to(dev)
+    return torch.sparse_csr_tensor(a_d.rpt, a_d.col[: a.nnz],
+                                   a_d.val[: a.nnz], size=a.shape)
+
+
+def cmd_spmv_xla(args) -> int:
+    """The library yardstick: ``torch.sparse_csr_tensor @ x`` (cuSPARSE on
+    a card)."""
+    from nsparse_tpu_torch.utils.checking import (
+        ans_check,
+        spmv_abs_oracle,
+        spmv_oracle,
+    )
+    from nsparse_tpu_torch.utils.timing import gflops
+
+    dtype = np.float32 if args.precision == "single" else np.float64
+    dev = _device(args.device)
+    a = _load(args.matrix, dtype)
+    m, n = a.shape
+    print(f"matrix: {args.matrix}  M={m} N={n} nnz={a.nnz}")
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal(n).astype(dtype))
+    csr, x_d = _library_csr(a, dev), x.to(dev)
+    ms, where = _timed(lambda: csr @ x_d, dev, args.trials)
+    print(f"SpMV [torch.sparse_csr, {where}]: {ms:.4f} ms  "
+          f"{gflops(2.0 * a.nnz, ms):.2f} GFLOPS")
+    ok, nf = ans_check(csr @ x_d, spmv_oracle(a, x), dtype=dtype,
+                       scale=spmv_abs_oracle(a, x))
+    print("pass" if ok else f"FAIL ({nf} mismatches)")
+    return 0 if ok else 1
+
+
+def cmd_spgemm_xla(args) -> int:
+    """The library yardstick: ``torch.sparse_csr_tensor @
+    torch.sparse_csr_tensor`` (cuSPARSE on a card, which plans in every
+    call).  A refusal by the library is reported with exit code 1."""
+    import scipy.sparse as sp
+
+    from nsparse_tpu_torch.formats.csr import CSR
+    from nsparse_tpu_torch.ops.spgemm import spgemm_flops
+    from nsparse_tpu_torch.utils.timing import gflops
+
+    dtype = np.float32 if args.precision == "single" else np.float64
+    dev = _device(args.device)
+    a = _load(args.matrix, dtype)
+    m, n = a.shape
+    print(f"matrix: {args.matrix}  M={m} N={n} nnz={a.nnz}")
+    csr = _library_csr(a, dev)
+    try:
+        ms, where = _timed(lambda: csr @ csr, dev, args.trials)
+        c = csr @ csr
+    except RuntimeError as e:  # the library refuses some products
+        print(f"SpGEMM [torch.sparse_csr]: unsupported on this device ({e})")
+        return 1
+    print(f"SpGEMM [torch.sparse_csr, {where}]: {ms:.4f} ms  "
+          f"{gflops(spgemm_flops(a, a), ms):.2f} GFLOPS")
+    got = sp.csr_matrix((c.values().cpu().numpy(),
+                         c.col_indices().cpu().numpy(),
+                         c.crow_indices().cpu().numpy()), shape=c.shape)
+    return _check_spgemm(CSR.from_scipy(got), a)
 
 
 def main(argv=None) -> int:
@@ -272,8 +367,18 @@ def main(argv=None) -> int:
                     help="tuning objective: the formats' footprint (model) "
                          "or measured time per candidate (measure, on a "
                          "card)")
+    sp.add_argument("--profile", default=None, metavar="TRACE_DIR",
+                    help="write a torch.profiler trace (Chrome JSON) of "
+                         "the SpMV into TRACE_DIR")
     add_device(sp)
     sp.set_defaults(fn=cmd_spmv)
+
+    sx = sub.add_parser("spmv-xla", help="the library yardstick: "
+                        "torch.sparse_csr_tensor @ x")
+    sx.add_argument("matrix")
+    sx.add_argument("--trials", type=int, default=101)
+    add_device(sx)
+    sx.set_defaults(fn=cmd_spmv_xla)
 
     sg = sub.add_parser("spgemm", help="C = A @ A through a plan")
     sg.add_argument("matrix")
@@ -281,15 +386,26 @@ def main(argv=None) -> int:
     sg.add_argument("--planner", choices=["auto", "host", "device"],
                     default="auto",
                     help="symbolic phase of the esc method: device = "
-                         "one-shot on the card (auto, the default); host = "
-                         "the reusable plan in its window, global or sort "
-                         "layout")
+                         "one-shot on the card (auto without a plan "
+                         "cache); host = the reusable plan in its window, "
+                         "global or sort layout (auto with a plan cache)")
     sg.add_argument("--method", choices=["auto", "esc", "bsr"],
                     default="auto",
                     help="esc (window path), bsr (dense tile products) or "
                          "auto (the block-statistics cost model)")
+    sg.add_argument("--plan-cache", default=None, metavar="DIR",
+                    help="directory of saved SpGEMM plans (the host plan, "
+                         "keyed by the sparsity fingerprints); with "
+                         "--planner auto it selects the host planner")
     add_device(sg)
     sg.set_defaults(fn=cmd_spgemm)
+
+    sgx = sub.add_parser("spgemm-xla", help="the library yardstick: "
+                         "torch.sparse_csr_tensor @ torch.sparse_csr_tensor")
+    sgx.add_argument("matrix")
+    sgx.add_argument("--trials", type=int, default=11)
+    add_device(sgx)
+    sgx.set_defaults(fn=cmd_spgemm_xla)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -113,3 +113,16 @@ class BSR:
 
     def to(self, device) -> "BSR":
         return to_device(self, device)
+
+    def to_dense(self) -> torch.Tensor:
+        """(M, N) dense tensor: the tiles summed into place, cut to
+        ``shape``."""
+        br, bc = self.blocksize
+        m, n = self.shape
+        nbc = -(-n // bc)
+        grid = torch.zeros(self.n_block_rows * nbc, br, bc, dtype=self.dtype,
+                           device=self.data.device)
+        grid.index_add_(0, self.block_row.long() * nbc
+                        + self.block_col.long(), self.data)
+        dense = grid.view(self.n_block_rows, nbc, br, bc).transpose(1, 2)
+        return dense.reshape(self.n_block_rows * br, nbc * bc)[:m, :n]

@@ -56,6 +56,17 @@ class COO:
     def to(self, device) -> "COO":
         return to_device(self, device)
 
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.val.device) < self.nnz
+
+    def to_dense(self) -> torch.Tensor:
+        """(M, N) dense tensor, duplicates summed."""
+        nnz = self.nnz
+        out = torch.zeros(self.shape, dtype=self.dtype, device=self.val.device)
+        return out.index_put_(
+            (self.row[:nnz].long(), self.col[:nnz].long()), self.val[:nnz],
+            accumulate=True)
+
     def to_scipy(self):
         import scipy.sparse as sp
 

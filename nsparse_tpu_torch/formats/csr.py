@@ -4,7 +4,8 @@ Counterpart of ``nsparse_tpu/formats/csr.py``.  The JAX class pads its
 arrays to a static capacity because XLA needs static shapes; PyTorch runs
 eagerly, so a matrix built here holds exactly ``nnz`` entries.  A SpGEMM
 result keeps the plan's 128-padded capacity (``col``/``val`` longer than
-``nnz``), as the JAX result does, so the two compare array for array.
+``nnz``), as the JAX result does, so the two compare array for array;
+``with_capacity`` pads or cuts a matrix to a given capacity.
 
 Canonical form: per-row column indices sorted ascending, duplicates summed.
 """
@@ -62,9 +63,55 @@ class CSR:
         val = m.data if dtype is None else m.data.astype(dtype)
         return cls.from_numpy(m.indptr, m.indices, val, m.shape)
 
+    @classmethod
+    def from_dense(cls, dense) -> "CSR":
+        """From a dense array or tensor (its zeros dropped)."""
+        import scipy.sparse as sp
+
+        if isinstance(dense, torch.Tensor):
+            dense = dense.cpu().numpy()
+        return cls.from_scipy(sp.csr_matrix(np.asarray(dense)))
+
+    @classmethod
+    def from_coo(cls, coo) -> "CSR":
+        """Host-side COO -> CSR (sorted, duplicates summed)."""
+        return cls.from_scipy(coo.to_scipy())
+
     @property
     def dtype(self) -> torch.dtype:
         return self.val.dtype
+
+    @property
+    def capacity(self) -> int:
+        return int(self.val.shape[0])
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    def nnz_per_row(self) -> torch.Tensor:
+        return self.rpt[1:] - self.rpt[:-1]
+
+    def nnz_max(self) -> int:
+        """The most entries of any row (0 for a matrix without rows)."""
+        return int(self.nnz_per_row().max()) if self.shape[0] else 0
+
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.device) < self.nnz
+
+    def row_ids(self) -> torch.Tensor:
+        """(capacity,) int32 row of each entry; the padded tail is M."""
+        m = self.shape[0]
+        rows = torch.full((self.capacity,), m, dtype=torch.int32,
+                          device=self.device)
+        rows[: self.nnz] = torch.repeat_interleave(
+            torch.arange(m, dtype=torch.int32, device=self.device),
+            self.nnz_per_row().long(), output_size=self.nnz)
+        return rows
 
     @property
     def device(self) -> torch.device:
@@ -101,3 +148,45 @@ class CSR:
         rpt, col, val = self.host_arrays()
         nnz = self.nnz
         return sp.csr_matrix((val[:nnz], col[:nnz], rpt), shape=self.shape)
+
+    def with_capacity(self, cap: int) -> "CSR":
+        """``col``/``val`` padded with zeros, or cut, to ``cap`` entries
+        (never below ``nnz`` or 1)."""
+        cap = max(int(cap), self.nnz, 1)
+        if cap <= self.capacity:
+            return dataclasses.replace(self, col=self.col[:cap],
+                                       val=self.val[:cap])
+        pad = cap - self.capacity
+        return dataclasses.replace(
+            self, col=torch.nn.functional.pad(self.col, (0, pad)),
+            val=torch.nn.functional.pad(self.val, (0, pad)))
+
+    def astype(self, dtype) -> "CSR":
+        """Values cast to ``dtype`` (a torch or numpy dtype)."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+        return dataclasses.replace(self, val=self.val.to(dtype))
+
+    def to_dense(self) -> torch.Tensor:
+        """(M, N) dense tensor on the matrix's device."""
+        nnz = self.nnz
+        out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        return out.index_put_(
+            (self.row_ids()[:nnz].long(), self.col[:nnz].long()),
+            self.val[:nnz], accumulate=True)
+
+    def transpose(self) -> "CSR":
+        """Host-side transpose: the canonical CSR of A^T."""
+        return CSR.from_scipy(self.to_scipy().T)
+
+    def __eq__(self, other) -> bool:
+        """Tolerant matrix equality (the reference's ``CSR::operator==``):
+        exact structure, values within ``checking.ans_check``'s rtol."""
+        from nsparse_tpu_torch.utils.checking import csr_allclose
+
+        if not isinstance(other, CSR):
+            return NotImplemented
+        return csr_allclose(self, other)
+
+    def __hash__(self):
+        return id(self)

@@ -95,3 +95,14 @@ class DIA:
 
     def to(self, device) -> "DIA":
         return to_device(self, device)
+
+    def to_dense(self) -> torch.Tensor:
+        """(M, N) dense tensor of the kept diagonals."""
+        m, n = self.shape
+        out = torch.zeros(self.shape, dtype=self.dtype,
+                          device=self.vals.device)
+        for d, off in enumerate(self.offsets):
+            i = torch.arange(max(0, -off), min(m, n - off),
+                             device=self.vals.device)
+            out[i, i + off] = self.vals[d, i]
+        return out

@@ -18,21 +18,18 @@ order (``uniq_cols_gp``, ``xfill_gp``, ``xsh``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import TYPE_CHECKING, Tuple
 
 import numpy as np
 import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
-from nsparse_tpu_torch.ops.kernels.flat_gather import (
-    FlatGatherPlan,
-    build_flat_gather_plan,
-)
-from nsparse_tpu_torch.ops.kernels.shuffle import (
-    ShufflePlan,
-    build_shuffle_plan,
-)
 from nsparse_tpu_torch.utils.device import int32_tensor, to_device
+
+if TYPE_CHECKING:  # the plan constructors are imported where they run:
+    # the ops package imports this module
+    from nsparse_tpu_torch.ops.kernels.flat_gather import FlatGatherPlan
+    from nsparse_tpu_torch.ops.kernels.shuffle import ShufflePlan
 
 LANES = 128
 SUBLANES = 8
@@ -91,6 +88,27 @@ class ELL:
     def to(self, device) -> "ELL":
         return to_device(self, device)
 
+    def to_dense(self) -> torch.Tensor:
+        """(M, N) dense tensor: each slab row's slots summed into place,
+        rows gathered by ``pos``, split rows' extra chunks added."""
+        n = self.shape[1]
+        parts = []
+        for v, c in zip(self.vals, self.cols):
+            w, r = v.shape
+            slab = torch.zeros(r, n, dtype=v.dtype, device=v.device)
+            rows = torch.arange(r, device=v.device).expand(w, r)
+            parts.append(slab.index_put_((rows.reshape(-1),
+                                          c.reshape(-1).long()),
+                                         v.reshape(-1), accumulate=True))
+        slots = torch.cat(parts)
+        out = slots[self.pos.long()]
+        if self.split_rows is not None:
+            extra = self.split_slots.long()
+            chunks = torch.where((extra >= 0)[..., None],
+                                 slots[extra.clamp(min=0)], 0)
+            out.index_add_(0, self.split_rows.long(), chunks.sum(dim=1))
+        return out
+
     @classmethod
     def from_numpy(cls, vals, cols, pos, shape, widths, nnz, lens,
                    split_rows=None, split_slots=None, xshuffle_src=None
@@ -98,6 +116,10 @@ class ELL:
         """From host slabs (a JAX ELL's arrays); the gather plans are
         built here.  ``xshuffle_src``: the x-shuffle permutation (slab
         slot -> column-sorted slot), or None for no x-shuffle path."""
+        from nsparse_tpu_torch.ops.kernels.flat_gather import (
+            build_flat_gather_plan,
+        )
+
         vals = tuple(torch.from_numpy(np.array(v)) for v in vals)
         cols_np = [np.array(c, dtype=np.int32) for c in cols]
         pos = np.asarray(pos, dtype=np.int32)
@@ -266,6 +288,11 @@ def _xshuffle_plans(cols, src=None) -> dict:
     columns, fill them out in column-sorted slot order, then permute to
     slab order (``src``: slab slot -> column-sorted slot; derived from a
     stable sort when None)."""
+    from nsparse_tpu_torch.ops.kernels.flat_gather import (
+        build_flat_gather_plan,
+    )
+    from nsparse_tpu_torch.ops.kernels.shuffle import build_shuffle_plan
+
     cols_flat = np.concatenate([c.reshape(-1) for c in cols]).astype(np.int64)
     order = np.argsort(cols_flat, kind="stable")
     if src is None:

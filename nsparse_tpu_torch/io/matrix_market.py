@@ -1,4 +1,5 @@
-"""Matrix Market reader (counterpart of ``nsparse_tpu/io/matrix_market.py``).
+"""Matrix Market reader and writer (counterpart of
+``nsparse_tpu/io/matrix_market.py``).
 
 Same semantics as the JAX package: symmetrize unless the header says
 ``general`` (``skew-symmetric`` mirrors with negated values), pattern
@@ -12,6 +13,7 @@ import io
 
 import numpy as np
 
+from nsparse_tpu_torch.formats.coo import COO
 from nsparse_tpu_torch.formats.csr import CSR
 
 
@@ -76,3 +78,21 @@ def read_mtx(path: str, dtype=np.float64) -> CSR:
     rows, cols, vals, shape = read_mtx_arrays(path)
     coo = sp.coo_matrix((vals.astype(dtype), (rows, cols)), shape=shape)
     return CSR.from_scipy(coo)
+
+
+def read_mtx_coo(path: str, dtype=np.float64, pad_to=None) -> COO:
+    """.mtx -> COO in file order (symmetrized, duplicates kept)."""
+    rows, cols, vals, shape = read_mtx_arrays(path)
+    return COO.from_arrays(rows, cols, vals.astype(dtype), shape,
+                           pad_to=pad_to)
+
+
+def write_mtx(path: str, a: CSR, symmetry: str = "general") -> None:
+    """Write ``a`` as a coordinate .mtx, 1-based, values as ``%.17g``
+    (the JAX package's text, byte for byte)."""
+    s = a.to_scipy().tocoo()
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate real {symmetry}\n")
+        f.write(f"{a.shape[0]} {a.shape[1]} {s.nnz}\n")
+        for r, c, v in zip(s.row, s.col, s.data):
+            f.write(f"{r + 1} {c + 1} {v:.17g}\n")

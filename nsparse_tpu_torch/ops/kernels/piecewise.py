@@ -362,6 +362,72 @@ def _check_codes(code: np.ndarray, bank_rows: int, what: str) -> None:
         raise ValueError(f"{what}: bank row outside the bank")
 
 
+def _check_piece_tables(cuts_l, boffs_l, aligned: bool, bank_rows: int,
+                        nnz_b: int) -> None:
+    """Per class of ``J_CLASSES``: the cuts ascend inside each subtile, and
+    every piece that is read lies inside the bank (aligned) or the flat
+    table (unaligned)."""
+    n_tbl = flat_table_rows(nnz_b) * LANES
+    for J, c, b in zip(J_CLASSES, cuts_l, boffs_l):
+        c = np.asarray(c, np.int64)
+        b = np.asarray(b, np.int64)
+        # a piece at or past TILE is inert: the cuts must ascend up to it
+        # (a run with no products may leave one past TILE before the pads)
+        c2 = np.minimum(c.reshape(-1, J), TILE)
+        if c2.size and not (c2 >= 0).all() or (np.diff(c2, axis=1) < 0).any():
+            raise ValueError("piece cuts must ascend inside their subtile")
+        # only a piece that starts inside its subtile is ever read
+        live = b[c < TILE]
+        if aligned:
+            _check_codes(live, bank_rows, "piece table")
+        elif live.size and not ((live >= 0) & (live + TILE <= n_tbl)).all():
+            raise ValueError("piece table: offset outside the flat table")
+
+
+def check_piecewise_plan(plan: PiecewisePlan) -> None:
+    """Raise ValueError unless every table of ``plan`` fits what it
+    indexes, as :func:`build_piecewise_plan` leaves them: per class, whole
+    groups of subtile ids inside the arena and ``J`` pieces a subtile, the
+    pieces' checks of ``build_piecewise_plan``, one A index per piece, compact tiles
+    inside the compact buffer (or the zero tile past it), and run-dense
+    subtiles inside the arena.  (For a plan read from a file: the
+    kernels trust these tables.)"""
+    n_sub = plan.n_pad // TILE
+    if plan.n_pad != _round_up(max(plan.n, 1), SUPER):
+        raise ValueError("piecewise arena is not padded to whole groups")
+    if not len(plan.ids) == len(plan.cuts) == len(plan.boffs) \
+            == len(J_CLASSES):
+        raise ValueError(f"piecewise plan needs {len(J_CLASSES)} classes")
+    if plan.aligned != (plan.bank_rows > 0) or (
+            plan.aligned and plan.bank_rows != bank_rows_for(plan.nnz_b)):
+        raise ValueError("piecewise bank rows do not match the mode")
+
+    def inside(x: torch.Tensor, lo: int, hi: int, what: str) -> None:
+        if x.numel() and not (int(x.min()) >= lo and int(x.max()) < hi):
+            raise ValueError(f"piecewise {what} outside [{lo}, {hi})")
+
+    n_pieces = 0
+    for J, i, c, b in zip(J_CLASSES, plan.ids, plan.cuts, plan.boffs):
+        if i.numel() % SUB or c.numel() != i.numel() * J \
+                or b.numel() != c.numel():
+            raise ValueError(f"piece tables of budget {J} have the wrong "
+                             "length")
+        inside(i, -1, n_sub, "subtile id")
+        n_pieces += c.numel()
+    _check_piece_tables([c.numpy() for c in plan.cuts],
+                        [b.numpy() for b in plan.boffs], plan.aligned,
+                        plan.bank_rows, plan.nnz_b)
+    if plan.apv_idx.numel() != n_pieces:
+        raise ValueError("piecewise plan needs one A index per piece")
+    if plan.arena_src.numel() != n_sub:
+        raise ValueError("piecewise arena tiles have the wrong length")
+    inside(plan.arena_src, 0, plan.n_compact + 1, "compact tile")
+    inside(plan.fb_ids, 0, n_sub, "run-dense subtile")
+    if not plan.fb_bidx.numel() == plan.fb_aidx.numel() \
+            == plan.fb_ids.numel() * TILE:
+        raise ValueError("run-dense tables have the wrong length")
+
+
 def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
                          nnz_b: int) -> PiecewisePlan:
     """Host: route runs into per-subtile piece tables, in the aligned mode
@@ -471,19 +537,7 @@ def build_piecewise_plan(run_start, run_boff, run_aidx, n: int, nnz_a: int,
     fb_bidx = np.where(pos < n, run_boff[ridx] + pos - run_start[ridx], -1)
     fb_aidx = np.where(pos < n, run_aidx[ridx], 0)
 
-    n_tbl = flat_table_rows(nnz_b) * LANES
-    for J, c, b in zip(J_CLASSES, cuts_l, boffs_l):
-        # a piece at or past TILE is inert: the cuts must ascend up to it
-        # (a run with no products may leave one past TILE before the pads)
-        c2 = np.minimum(c.reshape(-1, J), TILE)
-        if c2.size and not (c2 >= 0).all() or (np.diff(c2, axis=1) < 0).any():
-            raise ValueError("piece cuts must ascend inside their subtile")
-        # only a piece that starts inside its subtile is ever read
-        live = b[c < TILE]
-        if aligned:
-            _check_codes(live, rows_tot, "piece table")
-        elif live.size and not ((live >= 0) & (live + TILE <= n_tbl)).all():
-            raise ValueError("piece table: offset outside the flat table")
+    _check_piece_tables(cuts_l, boffs_l, aligned, rows_tot, nnz_b)
 
     aidx_cat = np.concatenate(aidx_l)
     splits, off = [], 0

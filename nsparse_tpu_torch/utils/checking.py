@@ -8,6 +8,10 @@
   scale for ``ans_check``.
 - ``check_spgemm_answer``: exact structure (rpt and col equal) plus
   tolerant values against a scipy CSR.
+- ``ans_check_device`` / ``check_spgemm_answer_device``: the same checks
+  reduced on the answer's device (the oracle goes up in float64, one
+  scalar per comparison comes back).
+- ``csr_allclose``: tolerant matrix equality (``CSR.__eq__``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
 
@@ -102,3 +107,63 @@ def check_spgemm_answer(c: CSR, c_ref, verbose: bool = False,
     if verbose and not ok:
         print(f"{n_fail} value mismatches")
     return ok
+
+
+def ans_check_device(y, y_ref, dtype=None, scale=None) -> Tuple[bool, int]:
+    """:func:`ans_check` reduced on ``y``'s device: the oracle (and
+    ``scale``) go up in float64, one count of failures comes back."""
+    y = torch.as_tensor(y)
+    dev = y.device
+    rtol = _rtol_for(dtype or _np_dtype(y.dtype))
+    ref = torch.as_tensor(np.asarray(_host(y_ref), dtype=np.float64),
+                          device=dev)
+    denom = ref.abs()
+    if scale is not None:
+        denom = torch.maximum(denom, torch.as_tensor(
+            np.asarray(_host(scale), dtype=np.float64), device=dev))
+    floor = float(np.finfo(np.float64).tiny ** 0.5)
+    err = (y.double() - ref).abs()
+    n_fail = int((err > rtol * denom.clamp(min=floor)).sum())
+    return n_fail == 0, n_fail
+
+
+def check_spgemm_answer_device(c: CSR, c_ref, abs_ref=None) -> bool:
+    """:func:`check_spgemm_answer` reduced on C's device: ``rpt`` and
+    ``col`` equal to the scipy oracle's exactly, then
+    :func:`ans_check_device` on the values."""
+    ref = c_ref.tocsr()
+    ref.sum_duplicates()
+    ref.sort_indices()
+    if tuple(c.shape) != tuple(ref.shape) or c.nnz != ref.nnz:
+        return False
+    dev, nnz = c.val.device, c.nnz
+
+    def same(got, want) -> bool:
+        return bool(torch.equal(got.int(), torch.as_tensor(
+            want.astype(np.int32), device=dev)))
+
+    if not (same(c.rpt, ref.indptr) and same(c.col[:nnz], ref.indices)):
+        return False
+    ok, _ = ans_check_device(
+        c.val[:nnz], ref.data, dtype=_np_dtype(c.val.dtype),
+        scale=abs_ref.data if abs_ref is not None else None)
+    return ok
+
+
+def csr_allclose(a: CSR, b: CSR) -> bool:
+    """Tolerant matrix equality (the reference's ``CSR::operator==``):
+    scipy-canonical structure equal, values by :func:`ans_check`."""
+    sa, sb = a.to_scipy(), b.to_scipy()
+    for s in (sa, sb):
+        s.sum_duplicates()
+        s.sort_indices()
+    if sa.shape != sb.shape or sa.nnz != sb.nnz:
+        return False
+    if not (np.array_equal(sa.indptr, sb.indptr)
+            and np.array_equal(sa.indices, sb.indices)):
+        return False
+    return ans_check(sa.data, sb.data, dtype=sa.data.dtype)[0]
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype

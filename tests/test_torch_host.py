@@ -39,7 +39,12 @@ def test_import_pulls_in_no_jax():
         "nsparse_tpu_torch.ops.kernels.dia, "
         "nsparse_tpu_torch.ops.kernels.spmv_bsr, "
         "nsparse_tpu_torch.ops.kernels.bsr_blocks, "
-        "nsparse_tpu_torch.ops.spgemm_bsr; "
+        "nsparse_tpu_torch.ops.spgemm_bsr, "
+        "nsparse_tpu_torch.tune.spgemm_cache, "
+        "nsparse_tpu_torch.utils.profiling, "
+        "nsparse_tpu_torch.utils.hostmem, "
+        "nsparse_tpu_torch.io.suitesparse, "
+        "nsparse_tpu_torch.ops.binning; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('nsparse_tpu.') or m == 'nsparse_tpu']; "
         "print(bad); sys.exit(1 if bad else 0)"
