@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SpGEMM, SpMV and block SpGEMM paths once on one
-CUDA card.
+"""Drive the PyTorch port's SpGEMM, SpMV, block SpGEMM and distributed paths
+once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -123,7 +123,35 @@ Phases (any failure exits non-zero before the final line):
      functions, at 1 tile (1 unit; K7 and K8 on a 32 x 32 stencil) and at
      the main path's own calls: the median of LAUNCH_ROUNDS rounds of
      LAUNCH_REPS back-to-back calls, every step in each round;
-  9. each kernel against its plain PyTorch version on the card, on the
+  9. the distributed layer (``nsparse_tpu_torch.parallel``) on a
+     virtual mesh of DIST_SHARDS shards on cuda:0, f32 with value re-runs
+     in f64, each y and C checked against scipy (rtol 1e-5 / 1e-8 of
+     |A||x|, |A||B| or |R||A||P|, structure exact):
+       dist-spmv-rmat20   ``spmv_dist`` on the R-MAT-20 above, x
+                          replicated (plain local SpMVs: no port kernel);
+       dist-spmv-halo     ``spmv_halo`` on the DIST_STENCIL² stencil, x
+                          sharded, halos copied between shards;
+       spgemm-dist        ``spgemm_dist`` on R-MAT-14, a sort-layout plan
+                          per shard: K5/K1/K6 launches equal to the sum
+                          over the shards' gather plans; new values;
+       spgemm-dist-window ``spgemm_plan_dist_window`` and
+                          ``spgemm_numeric_dist_window``, v2 per shard:
+                          K11, K1, K3 v2, K2 piece mode, K12, K4 equal to
+                          the shards' summed single-card counts; both
+                          Cs equal in structure to the single-card C and
+                          within 1e-5 of |A||B| of it;
+       spgemm-halo,       ``spgemm_halo`` (A·P) and the R·(A·P) chain on
+       rap-halo           the stencil with P the 4:1 aggregation, launch
+                          counts by the shard plans' layouts; ``rap_halo``
+                          equal to the planned chain;
+       rap-dist-*         ``rap_dist`` esc on the same operands and window
+                          (on R-MAT-14 when the v2 rule refuses the
+                          stencil), ``gather_partitioned`` called once
+                          (the final gather, none inside
+                          ``rap_dist_parts``), the planned chain counted;
+     each timed beside the single-card call of the same product, with its
+     device-busy share; then the CLI's ``rap --devices 4 --n 65536``;
+  10. each kernel against its plain PyTorch version on the card, on the
      inputs its paths gave it, timed with CUDA events beside the plain
      version, one PyTorch call that computes the same function (where
      there is one) and the least time the card could take (its bound).
@@ -2467,6 +2495,505 @@ def launch_cost_phase(s: Smoke) -> None:
               f"{min(t):.3f} to {max(t):.3f})", flush=True)
 
 
+# -- the distributed layer ------------------------------------------------------
+
+DIST_SHARDS = 4  # a virtual mesh: every shard on cuda:0
+# the halo SpMV and stencil R·A·P grid: 1024², cut from 2048² because the
+# phase's host plans passed its budget there (the halo plans of A·P and
+# R·(A·P) 40.1 + 11.7 s, rap_halo's own 55.1 s; PERF.md §4)
+DIST_STENCIL = 1024
+DIST_HOST_S = 150  # the phase's host-time budget
+
+
+def plan_launches(plan) -> dict:
+    """The launches of one single-card ``spgemm_numeric`` on ``plan``, by
+    its layout: the sort layout's gather plans (``sort_launches``); the
+    global slab layout's (``global_launches``); the window layout's v2
+    form (K11, K1 for the class A values, K3 v2 per class, K4) or v1 form
+    (K2 run form, K3 per class, K4), each with its fallback pool (v2: the
+    piece route's K1, K2 and K12; both: the pool's two K1 shuffles); K1
+    twice and K6 where a piece plan has run-dense subtiles."""
+    want = {}
+
+    def add(k, n=1):
+        want[k] = want.get(k, 0) + n
+
+    def pieces(pw):
+        for k, n in global_launches(pw).items():
+            if k not in ("build_bank", "gather"):
+                add(k, n)
+        add("gather")  # the pieces' A values
+        if pw.fb_ids.numel():
+            add("gather", 2)
+            add("scatter_tiles")
+
+    if plan.layout == "sort":
+        for k, n in sort_launches(plan.srt).items():
+            add(k, n)
+    elif plan.layout == "global":
+        add("build_bank")
+        add("gather", 2)  # the slab and assembly shuffles
+        pieces(plan.glob.pw)
+    else:
+        w = plan.win
+        add("runcopy")
+        if w.fused_expand:
+            add("build_bank")
+            add("gather")
+            add("fused_class_v2", len(w.fused))
+            if w.fb_shuffle is not None:
+                pieces(w.pw)
+        else:
+            add("expand")
+            add("fused_class", len(w.fused))
+        if w.fb_shuffle is not None:
+            add("gather", 2)
+    return want
+
+
+def shard_launches(plans) -> dict:
+    """The summed single-card launches of every shard's plan."""
+    want = {}
+    for p in plans:
+        for k, n in plan_launches(p).items():
+            want[k] = want.get(k, 0) + n
+    return want
+
+
+def layouts(plans) -> str:
+    return ", ".join(
+        p.layout + (("-v2" if p.win.fused_expand else "-v1")
+                    if p.layout == "window" else "") for p in plans)
+
+
+@contextlib.contextmanager
+def numeric_ops(ops):
+    """Every routed numeric phase runs ``ops`` inside the block: the
+    window phase's default and the ``KERNEL_OPS`` the global slab phase
+    reads at call time."""
+    from nsparse_tpu_torch.ops import spgemm_window as sw
+
+    saved = sw.spgemm_numeric_window.__defaults__, sw.KERNEL_OPS
+    sw.spgemm_numeric_window.__defaults__ = (ops,)
+    sw.KERNEL_OPS = ops
+    try:
+        yield
+    finally:
+        sw.spgemm_numeric_window.__defaults__, sw.KERNEL_OPS = saved
+
+
+@contextlib.contextmanager
+def all_plain(s: Smoke):
+    """Every kernel of every path replaced by its plain version."""
+    from nsparse_tpu_torch.ops import spgemm_window as sw
+
+    with s.plain_mode(), numeric_ops(sw.PLAIN_OPS):
+        yield
+
+
+def record_all(s: Smoke, fn, path: str) -> None:
+    """``s.record`` with the routed numeric phases' kernel calls kept too."""
+    from nsparse_tpu_torch.ops import spgemm_window as sw
+
+    kernels = sw.KERNEL_OPS
+    ops_type = type(kernels)
+
+    def recorder(field):
+        def call(*args, **kw):
+            s.calls[SPGEMM_FIELDS[field]].append((path, args))
+            return getattr(kernels, field)(*args, **kw)
+        return call
+
+    rec = ops_type(*(recorder(f) for f in ops_type._fields))
+    with numeric_ops(rec):
+        s.record(fn, path)
+
+
+def dist_timed(s: Smoke, path: str, fn, single, single_what: str,
+               calls: int = 3) -> None:
+    """``fn`` by CUDA events with the kernels and with their plain
+    versions (plain, kernels, kernels, plain), the single-card call of the
+    same product beside it, and its device-busy share under
+    torch.profiler."""
+    t = {"kernels": [], "plain": []}
+    for mode in ("plain", "kernels", "kernels", "plain"):
+        ctx = all_plain(s) if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            t[mode].append(s.time_cuda(fn, trials=TRIALS))
+    one = s.time_cuda(single, trials=TRIALS)
+    print(f"{path} [{s.name}, {s.card}]: {DIST_SHARDS} shards: kernels "
+          f"{np.mean(t['kernels']):.4f} ms ({t['kernels']})  plain "
+          f"{np.mean(t['plain']):.4f} ms ({t['plain']})  single card "
+          f"({single_what}) {one:.4f} ms", flush=True)
+    profile_calls(s.torch, fn, path, calls=calls)
+
+
+def check_y(s: Smoke, y, a, x, what: str) -> None:
+    """y against scipy (rtol 1e-5 f32 / 1e-8 f64 of |A||x|), finite."""
+    nt = s.nt
+    dt = np.float32 if y.dtype == s.torch.float32 else np.float64
+    ok, nf = nt.ans_check(y, nt.spmv_oracle(a, x), dtype=dt,
+                          scale=nt.spmv_abs_oracle(a, x))
+    finite = bool(s.torch.isfinite(y).all())
+    print(f"{what} vs scipy (rtol {1e-5 if dt == np.float32 else 1e-8:g}, "
+          f"|A||x| bound): {'pass' if ok else 'FAIL'}  finite {finite}",
+          flush=True)
+    if not ok or not finite:
+        fail(f"{what}: {nf} entries of y disagree with scipy")
+
+
+def check_chain(s: Smoke, c, mats, what: str):
+    """C against the scipy product of ``mats`` (rtol 1e-5 f32 / 1e-8 f64,
+    scaled by the product of their absolute values), structure exact,
+    values finite; returns that scale on C's structure."""
+    nt = s.nt
+    ref = mats[0].to_scipy()
+    sa = abs(ref.astype(np.float64))
+    for m in mats[1:]:
+        ref = ref @ m.to_scipy()
+        sa = sa @ abs(m.to_scipy().astype(np.float64))
+    ref, sa = ref.tocsr(), sa.tocsr()
+    for x in (ref, sa):
+        x.sum_duplicates()
+        x.sort_indices()
+    ok = nt.check_spgemm_answer(c, ref, verbose=True, abs_ref=sa)
+    finite = bool(np.isfinite(c.val[: c.nnz].cpu().numpy()).all())
+    rtol = 1e-5 if c.val.dtype == s.torch.float32 else 1e-8
+    bound = "|R||A||P|" if len(mats) == 3 else "|A||B|"
+    print(f"{what} vs scipy (rtol {rtol:g}, {bound} bound): "
+          f"{'pass' if ok else 'FAIL'}  finite {finite}", flush=True)
+    if not ok or not finite:
+        fail(f"{what} does not match the scipy oracle")
+    return sa.data
+
+
+def against_single(s: Smoke, c, c1, scale, what: str) -> None:
+    """A gathered dist C against the single-card C of the same product:
+    structure equal, values within 1e-5 of ``scale`` (|A||B| or
+    |R||A||P|)."""
+    torch = s.torch
+    same = torch.equal(c.rpt.cpu(), c1.rpt.cpu()) and torch.equal(
+        c.col[: c.nnz].cpu(), c1.col[: c1.nnz].cpu())
+    diff = (c.val[: c.nnz].double().cpu()
+            - c1.val[: c1.nnz].double().cpu()).abs()
+    rel = float((diff / torch.from_numpy(scale)).max()) if c.nnz else 0.0
+    print(f"{what}: structure equal to the single-card C: {same}; max "
+          f"|C_dist - C_single| / bound {rel:.3g} (within 1e-5: "
+          f"{rel <= 1e-5})", flush=True)
+    if not same or rel > 1e-5:
+        fail(f"{what}: the dist and single-card products differ")
+
+
+def with_dtype(part, dtype):
+    """A partition's values cast to ``dtype``."""
+    return part.with_values([v.to(dtype) for v in part.vals])
+
+
+def aggregation(s: Smoke, n: int, dtype=np.float32):
+    """(P, R = P^T) of the 4:1 consecutive aggregation of n unknowns."""
+    import scipy.sparse as sp
+
+    p = sp.csr_matrix((np.ones(n, dtype), (np.arange(n), np.arange(n) // 4)),
+                      shape=(n, n // 4))
+    return s.nt.CSR.from_scipy(p), s.nt.CSR.from_scipy(p.T.tocsr())
+
+
+def single_card_rmat14(s: Smoke) -> None:
+    """R-MAT-14's single-card v2 window C (spgemm_phase's, when it ran)
+    and its v2 and sort host plans (plan_cache_phase frees them), for
+    dist_phase to compare with."""
+    nt = s.nt
+    if not hasattr(s, "rmat14"):  # dist_phase run alone
+        a = nt.rmat_csr(SCALE, EDGE_FACTOR, dtype=np.float32, seed=SEED)
+        plan = host_timed(f"window-v2 plan R-MAT-{SCALE}",
+                          lambda: nt.spgemm_plan(a, a))
+        a_d = a.to(s.dev)
+        s.rmat14 = (a, a_d, nt.spgemm_numeric(plan.to(s.dev), a_d, a_d))
+        s.host_plans["window-v2"] = (a, plan, "spgemm")
+    a = s.rmat14[0]
+    for name, kw in (("window-v2", {}), ("sort", {"shuffle": False})):
+        if name not in s.host_plans:
+            s.host_plans[name] = (a, host_timed(
+                f"{name} plan R-MAT-{SCALE}",
+                lambda: nt.spgemm_plan(a, a, **kw)), name)
+
+
+def single_chain(s: Smoke, r, a, p):
+    """The single-card R @ (A @ P): host plans of both products (the
+    layout rule's choice), built once; returns the numeric chain."""
+    nt = s.nt
+    plan1 = host_timed("single-card plan A·P", lambda: nt.spgemm_plan(a, p))
+    ap = nt.CSR(rpt=plan1.c_rpt, col=plan1.c_col[: plan1.c_nnz],
+                val=a.val.new_zeros(plan1.c_nnz), shape=plan1.shape,
+                nnz=plan1.c_nnz)
+    plan2 = host_timed("single-card plan R·(A·P)",
+                       lambda: nt.spgemm_plan(r, ap))
+    print(f"single card: A·P {plan1.layout}, R·(A·P) {plan2.layout}",
+          flush=True)
+    plan1, plan2 = plan1.to(s.dev), plan2.to(s.dev)
+    r_d, a_d, p_d = (x.to(s.dev) for x in (r, a, p))
+
+    return lambda: nt.spgemm_numeric(plan2, r_d,
+                                     nt.spgemm_numeric(plan1, a_d, p_d))
+
+
+def dist_spgemm(s: Smoke, path: str, part, a, plan, run) -> object:
+    """A dist C = A @ A on R-MAT-14: the counted run (launches equal to the
+    shard plans' summed single-card launches), the scipy check, the
+    single-card window C's structure and values, new values in f32 and
+    f64 on the same plans; the gathered C."""
+    torch, nt, par = s.torch, s.nt, s.par
+    want = shard_launches(plan.plans)
+    print(f"{path}: shard layouts [{layouts(plan.plans)}], products "
+          f"{[p.n_products for p in plan.plans]}, nnz(C) {plan.c_nnz}; "
+          f"launches expected {want}", flush=True)
+    c = par.gather_partitioned(s.counted(lambda: run(part, s.a14_d), list(want),
+                                         path, want))
+    check_c(s, c, a, f"{path}: C")
+    against_single(s, c, s.rmat14[2], nt.spgemm_abs_oracle(a, a).data, path)
+    v2 = np.random.default_rng(SEED + 3).standard_normal(a.nnz)
+    for dt in (np.float32, np.float64):
+        a2 = a.with_values(torch.from_numpy(v2.astype(dt)))
+        part2 = par.partition_rows(a2, DIST_SHARDS, mesh=s.mesh)
+        c2 = par.gather_partitioned(run(part2, a2.to(s.dev)))
+        check_c(s, c2, a2, f"{path}: new {np.dtype(dt).name} values on the "
+                "same plans")
+    return c
+
+
+def dist_phase(s: Smoke) -> None:
+    """The distributed layer on a virtual mesh of DIST_SHARDS shards on
+    cuda:0 (PERF.md §4): spmv_dist on R-MAT-20, spmv_halo on the stencil,
+    spgemm_dist (sort layout per shard) and the dist window (v2 per shard)
+    on R-MAT-14, spgemm_halo and rap_halo on the stencil with the 4:1
+    aggregation, rap_dist esc on the same operands and window (refused on
+    the stencil, then on R-MAT-14), and the CLI's ``rap``.  Every y and C
+    checked against scipy in f32 and f64, launch counts exact, no host
+    gather inside ``rap_dist_parts``, each path timed beside the
+    single-card call of the same product."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch import parallel as par
+    from nsparse_tpu_torch.parallel import spgemm as ps
+
+    t_phase = time.perf_counter()
+    s.par = par
+    s.mesh = mesh = par.make_mesh(DIST_SHARDS, device=s.dev)
+    print(f"dist: a mesh of {mesh.size} shards, devices {set(map(str, mesh.devices))} "
+          "(one card: a virtual mesh)", flush=True)
+    rng = np.random.default_rng(SEED + 5)
+
+    # -- spmv_dist: R-MAT-20, x replicated --------------------------------
+    a = host_timed(f"generate R-MAT-{RMAT_SCALE}", lambda: nt.rmat_csr(
+        RMAT_SCALE, RMAT_EF, dtype=np.float32, seed=RMAT_SEED))
+    part = host_timed("partition_rows R-MAT-20", lambda: par.partition_rows(
+        a, DIST_SHARDS, mesh=mesh))
+    a_d = a.to(s.dev)
+    for dt in (np.float32, np.float64):
+        path = f"dist-spmv-rmat{RMAT_SCALE}" + ("-f64" if dt == np.float64 else "")
+        x = torch.from_numpy(rng.standard_normal(a.shape[1]).astype(dt))
+        x_d = x.to(s.dev)
+        p_dt = with_dtype(part, x.dtype)
+        y = s.counted(lambda: par.spmv_dist(p_dt, x_d, mesh), [], path, {})
+        if s.path_launches[path]:
+            fail(f"{path}: launched port kernels (its local SpMVs are plain)")
+        check_y(s, y, a.with_values(a.val.to(x.dtype)), x, path)
+        if dt == np.float32:
+            dist_timed(s, path, lambda: par.spmv_dist(p_dt, x_d, mesh),
+                       lambda: nt.spmv_csr(a_d, x_d), "spmv_csr")
+    del a, part, a_d, p_dt
+
+    # -- spmv_halo: the stencil, x sharded --------------------------------
+    st = host_timed(f"generate stencil {DIST_STENCIL}x{DIST_STENCIL}",
+                    lambda: nt.stencil_csr(DIST_STENCIL, DIST_STENCIL,
+                                           dtype=np.float32))
+    bp = host_timed("partition_banded stencil", lambda: par.partition_banded(
+        st, DIST_SHARDS, mesh=mesh))
+    print(f"stencil: {st.shape[0]} rows, nnz {st.nnz}, halo {bp.halo}, "
+          f"m_loc {bp.m_loc}", flush=True)
+    st_d = st.to(s.dev)
+    for dt in (np.float32, np.float64):
+        path = "dist-spmv-halo" + ("-f64" if dt == np.float64 else "")
+        x = torch.from_numpy(rng.standard_normal(st.shape[0]).astype(dt))
+        xs = par.shard_x(x, DIST_SHARDS, bp.m_loc, mesh)
+        bp_dt = with_dtype(bp, x.dtype)
+
+        def halo_run():
+            return par.spmv_halo(bp_dt, xs, mesh)
+
+        ys = s.counted(halo_run, [], path, {})
+        if s.path_launches[path]:
+            fail(f"{path}: launched port kernels (its local SpMVs are plain)")
+        check_y(s, torch.cat(ys)[: st.shape[0]],
+                st.with_values(st.val.to(x.dtype)), x, path)
+        if dt == np.float32:
+            x_d = x.to(s.dev)
+            dist_timed(s, path, halo_run, lambda: nt.spmv_csr(st_d, x_d),
+                       "spmv_csr")
+    del bp, bp_dt, xs
+
+    # -- spgemm_dist and the dist window: R-MAT-14, B replicated ----------
+    single_card_rmat14(s)
+    a14, s.a14_d, c_win = s.rmat14
+    part14 = par.partition_rows(a14, DIST_SHARDS, mesh=mesh)
+    plan = host_timed(f"spgemm_plan_dist R-MAT-{SCALE} ({DIST_SHARDS} sort-"
+                      "layout shard plans)",
+                      lambda: par.spgemm_plan_dist(part14, a14))
+
+    def sort_run(p, b):
+        return par.spgemm_dist(p, b, mesh, plan=plan)
+
+    dist_spgemm(s, "spgemm-dist", part14, a14, plan, sort_run)
+    record_all(s, lambda: sort_run(part14, s.a14_d), "spgemm-dist")
+    single = s.host_plans["sort"][1].to(s.dev)
+    dist_timed(s, "spgemm-dist", lambda: sort_run(part14, s.a14_d),
+               lambda: nt.spgemm_numeric(single, s.a14_d, s.a14_d),
+               "the sort-layout host plan")
+    del plan, single
+
+    plan = host_timed(f"spgemm_plan_dist_window R-MAT-{SCALE} ("
+                      f"{DIST_SHARDS} window shard plans)",
+                      lambda: par.spgemm_plan_dist_window(part14, a14))
+    if not all(p.win.fused_expand for p in plan.plans):
+        fail("spgemm_plan_dist_window returned a shard plan not in v2 form")
+
+    def win_run(p, b):
+        return par.spgemm_numeric_dist_window(plan, p, b, mesh)
+
+    dist_spgemm(s, "spgemm-dist-window", part14, a14, plan, win_run)
+    record_all(s, lambda: win_run(part14, s.a14_d), "spgemm-dist-window")
+    single = s.host_plans["window-v2"][1].to(s.dev)
+    dist_timed(s, "spgemm-dist-window", lambda: win_run(part14, s.a14_d),
+               lambda: nt.spgemm_numeric(single, s.a14_d, s.a14_d),
+               "the v2 window host plan")
+    del plan, single
+
+    # -- the stencil R·A·P: halo exchange, then B replicated --------------
+    p_st, r_st = aggregation(s, st.shape[0])
+    print(f"R·A·P: R({r_st.shape[0]}x{r_st.shape[1]}) @ A({st.shape[0]}x"
+          f"{st.shape[1]}, nnz {st.nnz}) @ P({p_st.shape[0]}x"
+          f"{p_st.shape[1]})", flush=True)
+    r_p, a_p, p_p = (par.partition_rows(x, DIST_SHARDS, mesh=mesh)
+                     for x in (r_st, st, p_st))
+    plan1 = host_timed("spgemm_halo_plan A·P",
+                       lambda: par.spgemm_halo_plan(a_p, p_p))
+    want1 = shard_launches(plan1.plans)
+    print(f"spgemm-halo: shard layouts [{layouts(plan1.plans)}], products "
+          f"{[p.n_products for p in plan1.plans]}; launches expected "
+          f"{want1}", flush=True)
+    ap = s.counted(lambda: par.spgemm_halo(a_p, p_p, mesh, plan=plan1),
+                   list(want1), "spgemm-halo", want1)
+    check_chain(s, par.gather_partitioned(ap), [st, p_st], "spgemm-halo: A·P")
+    plan2 = host_timed("spgemm_halo_plan R·(A·P)",
+                       lambda: par.spgemm_halo_plan(r_p, ap))
+    want = shard_launches(plan1.plans + plan2.plans)
+    print(f"rap-halo: R·(A·P) shard layouts [{layouts(plan2.plans)}], "
+          f"products {[p.n_products for p in plan2.plans]}; launches "
+          f"expected {want}", flush=True)
+
+    def rap_run(r_, a_, p_):
+        return par.spgemm_halo(r_, par.spgemm_halo(a_, p_, mesh, plan=plan1),
+                               mesh, plan=plan2)
+
+    c = s.counted(lambda: rap_run(r_p, a_p, p_p), list(want), "rap-halo",
+                  want)
+    c_rap = par.gather_partitioned(c)
+    scale = check_chain(s, c_rap, [r_st, st, p_st], "rap-halo")
+    c_entry = host_timed("rap_halo (plans inside)",
+                         lambda: par.rap_halo(r_p, a_p, p_p, mesh))
+    same = all(torch.equal(u, v) for u, v in zip(c.vals, c_entry.vals))
+    print(f"rap_halo == the planned chain (torch.equal): {same}", flush=True)
+    if not same:
+        fail("rap_halo and its planned chain give different C")
+    del c_entry
+    parts64 = [with_dtype(x, torch.float64) for x in (r_p, a_p, p_p)]
+    mats64 = [x.with_values(x.val.double()) for x in (r_st, st, p_st)]
+    check_chain(s, par.gather_partitioned(rap_run(*parts64)), mats64,
+                "rap-halo: float64 values on the same plans")
+    del parts64
+    record_all(s, lambda: rap_run(r_p, a_p, p_p), "rap-halo")
+    single_st = single_chain(s, r_st, st, p_st)
+    against_single(s, c_rap, single_st(), scale, "rap-halo")
+    dist_timed(s, "rap-halo", lambda: rap_run(r_p, a_p, p_p), single_st,
+               "host plans, both numeric phases")
+
+    def rap_dist_path(tag, r, a, p, single):
+        """rap_dist on (R, A, P): the entry point with gather_partitioned
+        counted (once: the final gather, none inside rap_dist_parts), the
+        planned chain counted, checked, re-run in f64, timed."""
+        path = f"rap-dist-{tag}"
+        numeric = tag.split("-")[0]
+        calls = [0]
+        orig = ps.gather_partitioned
+
+        def counting(c):
+            calls[0] += 1
+            return orig(c)
+
+        p_d = p.to(s.dev)
+        ps.gather_partitioned = counting
+        try:
+            got = host_timed(f"{path}: rap_dist (plans inside)",
+                             lambda: par.rap_dist(r, a, p_d, mesh,
+                                                  numeric=numeric))
+        finally:
+            ps.gather_partitioned = orig
+        print(f"{path}: gather_partitioned calls {calls[0]} (the final "
+              "gather only; none inside rap_dist_parts)", flush=True)
+        if calls[0] != 1:
+            fail(f"{path}: A·P gathered on the host inside rap_dist_parts")
+        check_chain(s, got, [r, a, p], f"{path}: rap_dist")
+        r_p, a_p = (par.partition_rows(x, DIST_SHARDS, mesh=mesh)
+                    for x in (r, a))
+        plan = host_timed(f"{path}: rap_dist_plan", lambda: par.rap_dist_plan(
+            r_p, a_p, p_d, numeric))
+        want = shard_launches(plan.ap.plans + plan.rap.plans)
+        print(f"{path}: A·P shard layouts [{layouts(plan.ap.plans)}], "
+              f"R·(A·P) [{layouts(plan.rap.plans)}]; launches expected "
+              f"{want}", flush=True)
+
+        def run(r_, a_, p_):
+            return par.rap_dist_numeric(plan, r_, a_, p_, mesh)
+
+        c = s.counted(lambda: run(r_p, a_p, p_d), list(want), path, want)
+        c = par.gather_partitioned(c)
+        against_single(s, c, single(), check_chain(s, c, [r, a, p], path),
+                       path)
+        if not (torch.equal(c.rpt, got.rpt) and torch.equal(c.val, got.val)):
+            fail(f"{path}: rap_dist and its planned chain differ")
+        check_chain(s, par.gather_partitioned(run(
+            with_dtype(r_p, torch.float64),
+            with_dtype(a_p, torch.float64),
+            p_d.with_values(p_d.val.double()))),
+            [x.with_values(x.val.double()) for x in (r, a, p)],
+            f"{path}: float64 values on the same plans")
+        dist_timed(s, path, lambda: run(r_p, a_p, p_d), single,
+                   "host plans, both numeric phases")
+
+    rap_dist_path("esc-stencil", r_st, st, p_st, single_st)
+    try:
+        host_timed("rap_dist_plan window, stencil", lambda: par.rap_dist_plan(
+            r_p, a_p, p_st, "window"))
+        refused = None
+    except NotImplementedError as e:
+        refused = e
+    del r_p, a_p, p_p, ap, c, c_rap, plan1, plan2
+    if refused is None:
+        rap_dist_path("window-stencil", r_st, st, p_st, single_st)
+    else:
+        print(f"rap-dist window on the stencil refused, as in the JAX "
+              f"package: {refused}; the window R·A·P runs on "
+              f"R-MAT-{SCALE}", flush=True)
+        p14, r14 = aggregation(s, a14.shape[0])
+        rap_dist_path(f"window-rmat{SCALE}", r14, a14, p14,
+                      single_chain(s, r14, a14, p14))
+    del single_st
+
+    cli_lines(["rap", "--devices", str(DIST_SHARDS), "--n", "65536"])
+    host_s = time.perf_counter() - t_phase
+    print(f"dist phase host time {host_s:.1f} s (budget {DIST_HOST_S} s; "
+          f"stencil {DIST_STENCIL}x{DIST_STENCIL})", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -2495,7 +3022,7 @@ def main() -> None:
                   cli_phase, kfold_phase, spmv_phases,
                   bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,
                   bank_subset_phase, k9_phase, k1_phase, k3_k2_phase,
-                  launch_cost_phase):
+                  launch_cost_phase, dist_phase):
         t0 = time.perf_counter()
         phase(s)
         print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "

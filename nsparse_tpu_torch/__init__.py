@@ -9,7 +9,9 @@ block-sparse SpGEMM path (``spgemm_bsr``, ``spgemm(..., method="bsr" |
 "auto")``), the SpMV path (CSR, COO, ELL, DIA and BSR formats, the
 semirings, the ``spmv`` dispatch and its tuner), Matrix Market reading
 and writing, the SuiteSparse fetcher, row binning, checking, timing and
-profiling utilities, and the CLI.  Their kernels are hand-written CUDA
+profiling utilities, the CLI, and the distributed layer
+(``nsparse_tpu_torch.parallel``: row-sharded SpMV and SpGEMM, halo
+exchange and R·A·P over a mesh of devices).  Their kernels are hand-written CUDA
 for Hopper, twelve sources in ``csrc/`` (K1-K12, with K2's piece and
 flat modes and K4's K-fold mode), each beside its plain PyTorch version.
 """

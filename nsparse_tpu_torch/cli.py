@@ -8,13 +8,16 @@
     python -m nsparse_tpu_torch --precision single spmv gen:stencil:2048:2048 --format dia --profile traces/
     python -m nsparse_tpu_torch --precision single spmv-xla data/circuit_zipf.mtx
     python -m nsparse_tpu_torch --precision single spgemm-xla data/circuit_zipf.mtx
+    python -m nsparse_tpu_torch rap --devices 4 --n 65536
 
 Loads a matrix (a .mtx path, ``gen:stencil:NX:NY``, ``gen:rmat:SCALE:EF``,
 ``gen:fem:NODES:DOF`` or ``gen:random:M:N:DENSITY``), builds the format or
 the plan, times the product and checks it against the scipy oracle,
 printing the same lines and pass/FAIL verdict as the JAX CLI.  ``spmv-xla``
 and ``spgemm-xla`` are the library yardsticks: one ``torch.sparse_csr_tensor``
-product (cuSPARSE on a card), timed and checked the same way.  It runs on
+product (cuSPARSE on a card), timed and checked the same way.  ``rap``
+runs the distributed Galerkin product R @ A @ P (``parallel.rap_halo``)
+over a mesh of ``--devices`` shards and checks it against scipy.  It runs on
 the card (``--device cuda``, the default), timed with CUDA events; it
 refuses to start when no card is visible.  ``--device cpu`` runs it on
 the host, timed by the host clock and labelled as such.
@@ -343,6 +346,66 @@ def cmd_spgemm_xla(args) -> int:
     return _check_spgemm(CSR.from_scipy(got), a)
 
 
+def cmd_rap(args) -> int:
+    """Distributed R @ A @ P over a mesh of ``--devices`` shards: A the
+    5-point stencil on about ``--n`` unknowns (or a loaded matrix), P the
+    4:1 consecutive aggregation, R = P^T, through ``rap_halo``; checked
+    against scipy with the |R||A||P| bound.  On the card each shard takes
+    a card of its own when there are enough, else every shard shares the
+    first (a virtual mesh; the JAX CLI forces one on the host)."""
+    import scipy.sparse as sp
+
+    from nsparse_tpu_torch.formats.csr import CSR
+    from nsparse_tpu_torch.io.generate import stencil_csr
+    from nsparse_tpu_torch.parallel import (
+        gather_partitioned,
+        make_mesh,
+        partition_rows,
+        rap_halo,
+    )
+    from nsparse_tpu_torch.utils.checking import check_spgemm_answer
+
+    dtype = np.float32 if args.precision == "single" else np.float64
+    dev = _device(args.device)
+    d = args.devices
+    if dev.type == "cuda" and torch.cuda.device_count() >= d:
+        mesh = make_mesh(d)
+    else:
+        mesh = make_mesh(d, device=dev)
+    names = [str(x) for x in mesh.devices]
+    print(f"mesh: {d} shards on "
+          + (f"{names[0]} (virtual mesh)" if len(set(names)) == 1
+             else ", ".join(names)))
+    n = args.n
+    a = _load(args.matrix, dtype) if args.matrix else stencil_csr(
+        int(n ** 0.5), n // int(n ** 0.5), dtype=dtype)
+    n = a.shape[0]
+    nc = n // 4
+    agg = np.arange(n) // 4
+    p_s = sp.csr_matrix((np.ones(n, dtype), (np.arange(n), agg)),
+                        shape=(n, nc))
+    p = CSR.from_scipy(p_s)
+    r = CSR.from_scipy(p_s.T.tocsr())
+    print(f"R({nc}x{n}) @ A({n}x{n}, nnz={a.nnz}) @ P({n}x{nc}) "
+          f"over a {d}-device mesh")
+
+    t0 = time.perf_counter()
+    parts = [partition_rows(x, d, mesh=mesh) for x in (r, a, p)]
+    got = gather_partitioned(rap_halo(*parts, mesh))
+    print(f"plans, numeric and gather: {time.perf_counter() - t0:.2f} s "
+          "host time")
+    ref = (r.to_scipy() @ a.to_scipy() @ p.to_scipy()).tocsr()
+    ref.sum_duplicates()
+    ref.sort_indices()
+    sa = (abs(r.to_scipy()) @ abs(a.to_scipy()) @ abs(p.to_scipy())).tocsr()
+    sa.sum_duplicates()
+    sa.sort_indices()
+    ok = check_spgemm_answer(got, ref, abs_ref=sa)
+    print(f"halo R.A.P: nnz(RAP)={got.nnz}  "
+          f"{'pass' if ok else 'FAIL'} (all comm = neighbor halo copies)")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="nsparse_tpu_torch")
     ap.add_argument("--precision", choices=["single", "double"],
@@ -406,6 +469,13 @@ def main(argv=None) -> int:
     sgx.add_argument("--trials", type=int, default=11)
     add_device(sgx)
     sgx.set_defaults(fn=cmd_spgemm_xla)
+
+    sr = sub.add_parser("rap", help="distributed R.A.P over a mesh")
+    sr.add_argument("matrix", nargs="?", default=None)
+    sr.add_argument("--devices", type=int, default=8)
+    sr.add_argument("--n", type=int, default=1024)
+    add_device(sr)
+    sr.set_defaults(fn=cmd_rap)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -383,7 +383,8 @@ def test_cli_spgemm_xla_reports_a_refusal(capsys, monkeypatch):
 @pytest.mark.parametrize("cmd", [["spmv-xla", "gen:stencil:8:8"],
                                  ["spgemm-xla", "gen:rmat:6:4"],
                                  ["spgemm", "gen:rmat:6:4", "--plan-cache",
-                                  "unused"]])
+                                  "unused"],
+                                 ["rap", "--devices", "4", "--n", "256"]])
 def test_cli_new_commands_refuse_cuda_without_a_card(cmd, monkeypatch):
     from nsparse_tpu_torch.cli import main
 
@@ -394,11 +395,23 @@ def test_cli_new_commands_refuse_cuda_without_a_card(cmd, monkeypatch):
         main([*cmd, "--device", "cuda"])
 
 
+def test_cli_rap_on_the_host(capsys):
+    """``rap`` over a virtual mesh of 4 shards on the host: R = P^T, P the
+    4:1 aggregation, A the stencil, checked against scipy."""
+    rc, out = _cli(["rap", "--devices", "4", "--n", "256"], capsys)
+    lines = out.strip().splitlines()
+    assert rc == 0, out
+    assert lines[0] == "mesh: 4 shards on cpu (virtual mesh)"
+    assert "R(64x256) @ A(256x256, nnz=1246) @ P(256x64) over a 4-device " \
+        "mesh" in out
+    assert "halo R.A.P: nnz(RAP)=" in lines[-1] and "pass" in lines[-1]
+
+
 # -- exports ------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("sub", ["", ".formats", ".io", ".ops", ".tune",
-                                 ".utils"])
+                                 ".utils", ".parallel"])
 def test_exports_cover_the_jax_package(sub):
     j = importlib.import_module("nsparse_tpu" + sub)
     t = importlib.import_module("nsparse_tpu_torch" + sub)

@@ -44,7 +44,13 @@ def test_import_pulls_in_no_jax():
         "nsparse_tpu_torch.utils.profiling, "
         "nsparse_tpu_torch.utils.hostmem, "
         "nsparse_tpu_torch.io.suitesparse, "
-        "nsparse_tpu_torch.ops.binning; "
+        "nsparse_tpu_torch.ops.binning, "
+        "nsparse_tpu_torch.parallel, nsparse_tpu_torch.parallel.mesh, "
+        "nsparse_tpu_torch.parallel.partition, "
+        "nsparse_tpu_torch.parallel.spmv, nsparse_tpu_torch.parallel.halo, "
+        "nsparse_tpu_torch.parallel.spgemm, "
+        "nsparse_tpu_torch.parallel.spgemm_halo, "
+        "nsparse_tpu_torch.parallel.spgemm_window; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('nsparse_tpu.') or m == 'nsparse_tpu']; "
         "print(bad); sys.exit(1 if bad else 0)"
