@@ -16,6 +16,8 @@ import hashlib
 import os
 import subprocess
 
+from nsparse_tpu_torch.utils import profiling
+
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
@@ -29,27 +31,34 @@ def build_shared(name: str, sources, cmd_prefix, timeout: float, deps=()):
     sources include (hashed, not compiled).  Raises
     ``subprocess.CalledProcessError`` (with the compiler's output) or
     ``FileNotFoundError`` when the compiler is missing.
+
+    Recorded (``utils.profiling``) as the span ``build`` and the counter
+    ``build.compiled`` or ``build.cached``.
     """
-    h = hashlib.sha256(" ".join(cmd_prefix).encode())
-    for src in (*sources, *deps):
-        with open(src, "rb") as f:
-            h.update(f.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
-    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not os.path.exists(path):
-                tmp = f"{path}.{os.getpid()}.tmp"
-                try:
-                    subprocess.run(
-                        [*cmd_prefix, "-o", tmp, *sources], check=True,
-                        capture_output=True, text=True, timeout=timeout,
-                    )
-                    os.replace(tmp, path)
-                finally:
-                    if os.path.exists(tmp):
-                        os.remove(tmp)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    return ctypes.CDLL(path)
+    with profiling.span("build"):
+        h = hashlib.sha256(" ".join(cmd_prefix).encode())
+        for src in (*sources, *deps):
+            with open(src, "rb") as f:
+                h.update(f.read())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+        with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                compiled = not os.path.exists(path)
+                profiling.count("build.compiled" if compiled
+                                else "build.cached")
+                if compiled:
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    try:
+                        subprocess.run(
+                            [*cmd_prefix, "-o", tmp, *sources], check=True,
+                            capture_output=True, text=True, timeout=timeout,
+                        )
+                        os.replace(tmp, path)
+                    finally:
+                        if os.path.exists(tmp):
+                            os.remove(tmp)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+        return ctypes.CDLL(path)

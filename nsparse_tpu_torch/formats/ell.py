@@ -25,6 +25,7 @@ import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
 from nsparse_tpu_torch.utils.device import int32_tensor, to_device
+from nsparse_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:  # the plan constructors are imported where they run:
     # the ops package imports this module
@@ -86,7 +87,8 @@ class ELL:
         return int(sum(v.numel() for v in self.vals))
 
     def to(self, device) -> "ELL":
-        return to_device(self, device)
+        with span("prep.to_device"):
+            return to_device(self, device)
 
     def to_dense(self) -> torch.Tensor:
         """(M, N) dense tensor: each slab row's slots summed into place,
@@ -160,127 +162,143 @@ class ELL:
           split_width: rows wider than this split into chunks; None
             disables splitting.
         """
-        m, n = a.shape
-        rpt, col, val = a.host_arrays()
-        col = col[: a.nnz]
-        val = val[: a.nnz]
-        deg = np.diff(rpt)
+        with span("prep.ell"):
+            with span("prep.ell.slabs"):
+                slabs = _host_slabs(a, min_width, max_slabs, sigma,
+                                    split_width)
+            with span("prep.ell.gather_plans"):
+                ell = cls.from_numpy(*slabs)
+            with span("prep.ell.xshuffle"):
+                # irregular columns: when a meaningful fraction of slots
+                # falls off the gather classes, plan the x expansion as a
+                # shuffle
+                cols = slabs[1]
+                slots = [c.size for c in cols]
+                bad = sum(g.class_fracs["fallback"] * s
+                          for g, s in zip(ell.cols_gp, slots)
+                          ) / max(sum(slots), 1)
+                want_xsh = bad > XSH_BAD_FRAC if xshuffle is None else xshuffle
+                if not (want_xsh and sum(slots) >= XSH_MIN_SLOTS):
+                    return ell
+                return dataclasses.replace(ell, **_xshuffle_plans(cols))
 
-        # row splitting: virtual rows = chunks of split_width
-        v_rpt = rpt[:-1].astype(np.int64)
-        v_deg = deg.astype(np.int64)
-        v_parent = np.arange(m, dtype=np.int64)
-        first_chunk = np.ones(m, dtype=bool)
-        if split_width is not None and m and deg.max(initial=0) > split_width:
-            heavy = np.flatnonzero(deg > split_width)
-            nch = -(-deg[heavy] // split_width)
-            rep = np.repeat(heavy, nch)
-            cum = np.concatenate([[0], np.cumsum(nch)[:-1]])
-            kin = np.arange(rep.size, dtype=np.int64) - np.repeat(cum, nch)
-            ch_rpt = rpt[rep] + kin * split_width
-            ch_deg = np.minimum(deg[rep] - kin * split_width, split_width)
-            keepm = deg <= split_width
-            v_rpt = np.concatenate([rpt[:-1][keepm], ch_rpt])
-            v_deg = np.concatenate([deg[keepm], ch_deg])
-            v_parent = np.concatenate(
-                [np.flatnonzero(keepm).astype(np.int64), rep])
-            first_chunk = np.concatenate(
-                [np.ones(int(keepm.sum()), bool), kin == 0])
-        mv = v_deg.size
 
-        # sigma-windowed descending sort by (virtual) row length
-        if sigma == 0:
-            order = np.arange(mv, dtype=np.int64)
-        elif sigma is None or sigma >= mv:
-            order = np.argsort(-v_deg, kind="stable")
-        else:
-            order = np.empty(mv, dtype=np.int64)
-            for s in range(0, mv, sigma):
-                e = min(s + sigma, mv)
-                order[s:e] = s + np.argsort(-v_deg[s:e], kind="stable")
+def _host_slabs(a: CSR, min_width: int, max_slabs: int, sigma: int | None,
+                split_width: int | None) -> tuple:
+    """The arguments of ``ELL.from_numpy`` for ``ELL.from_csr``: the host
+    slabs, ``pos`` and the split rows."""
+    m, n = a.shape
+    rpt, col, val = a.host_arrays()
+    col = col[: a.nnz]
+    val = val[: a.nnz]
+    deg = np.diff(rpt)
 
-        # geometric width classes
-        max_deg = int(v_deg.max()) if mv else 0
-        levels = []
-        w = max(int(min_width), 1)
-        while True:
-            levels.append(w)
-            if w >= max(max_deg, 1):
-                break
-            w *= 2
-        levels = sorted(levels[-max_slabs:])
-        level = np.minimum(
-            np.searchsorted(np.asarray(levels, dtype=np.int64), v_deg,
-                            side="left"),
-            len(levels) - 1)
-        if val.size == 0:  # fully empty matrix: keep gathers in bounds
-            val = np.zeros(1, dtype=val.dtype)
-            col = np.zeros(1, dtype=col.dtype)
+    # row splitting: virtual rows = chunks of split_width
+    v_rpt = rpt[:-1].astype(np.int64)
+    v_deg = deg.astype(np.int64)
+    v_parent = np.arange(m, dtype=np.int64)
+    first_chunk = np.ones(m, dtype=bool)
+    if split_width is not None and m and deg.max(initial=0) > split_width:
+        heavy = np.flatnonzero(deg > split_width)
+        nch = -(-deg[heavy] // split_width)
+        rep = np.repeat(heavy, nch)
+        cum = np.concatenate([[0], np.cumsum(nch)[:-1]])
+        kin = np.arange(rep.size, dtype=np.int64) - np.repeat(cum, nch)
+        ch_rpt = rpt[rep] + kin * split_width
+        ch_deg = np.minimum(deg[rep] - kin * split_width, split_width)
+        keepm = deg <= split_width
+        v_rpt = np.concatenate([rpt[:-1][keepm], ch_rpt])
+        v_deg = np.concatenate([deg[keepm], ch_deg])
+        v_parent = np.concatenate(
+            [np.flatnonzero(keepm).astype(np.int64), rep])
+        first_chunk = np.concatenate(
+            [np.ones(int(keepm.sum()), bool), kin == 0])
+    mv = v_deg.size
 
-        vals, cols, widths, lens = [], [], [], []
-        vpos = np.zeros(mv, dtype=np.int32)
-        offset = 0
-        lev_of_order = level[order]
-        for li, w in enumerate(levels):
-            rows = order[lev_of_order == li]
-            if rows.size == 0:
-                continue
-            rpad = _round_up(rows.size, LANES)
-            d = np.minimum(v_deg[rows], w)
-            idx = v_rpt[rows][None, :] + np.arange(w)[:, None]
-            mask = np.arange(w)[:, None] < d[None, :]
-            idx = np.where(mask, idx, 0)
-            # padding slots replicate the row's last valid column (value 0)
-            last_idx = np.minimum(v_rpt[rows] + np.maximum(d - 1, 0),
-                                  col.size - 1)
-            lastcol = np.where(d > 0, col[last_idx], 0).astype(np.int32)
-            sval = np.zeros((w, rpad), dtype=val.dtype)
-            scol = np.zeros((w, rpad), dtype=np.int32)
-            sval[:, : rows.size] = np.where(mask, val[idx], 0)
-            scol[:, : rows.size] = np.where(mask, col[idx], lastcol[None, :])
-            vpos[rows] = offset + np.arange(rows.size, dtype=np.int32)
-            ln = np.zeros(rpad, dtype=np.int32)
-            ln[: rows.size] = d
-            vals.append(sval)
-            cols.append(scol)
-            lens.append(ln)
-            widths.append(w)
-            offset += rpad
+    # sigma-windowed descending sort by (virtual) row length
+    if sigma == 0:
+        order = np.arange(mv, dtype=np.int64)
+    elif sigma is None or sigma >= mv:
+        order = np.argsort(-v_deg, kind="stable")
+    else:
+        order = np.empty(mv, dtype=np.int64)
+        for s in range(0, mv, sigma):
+            e = min(s + sigma, mv)
+            order[s:e] = s + np.argsort(-v_deg[s:e], kind="stable")
 
-        # original-row pos = first chunk's slot; extra chunks recombine
-        pos = np.zeros(m, dtype=np.int32)
-        pos[v_parent[first_chunk]] = vpos[first_chunk]
-        split_rows = split_slots = None
-        extra = ~first_chunk
-        if extra.any():
-            er = v_parent[extra]
-            es = vpos[extra]
-            o2 = np.argsort(er, kind="stable")
-            er, es = er[o2], es[o2]
-            f2 = np.flatnonzero(np.diff(np.concatenate([[-1], er])) != 0)
-            cnt2 = np.diff(np.concatenate([f2, [er.size]]))
-            split_rows = er[f2].astype(np.int32)
-            split_slots = np.full((f2.size, int(cnt2.max())), -1, np.int32)
-            kk = np.arange(er.size, dtype=np.int64) - np.repeat(f2, cnt2)
-            split_slots[np.repeat(np.arange(f2.size), cnt2), kk] = es
+    # geometric width classes
+    max_deg = int(v_deg.max()) if mv else 0
+    levels = []
+    w = max(int(min_width), 1)
+    while True:
+        levels.append(w)
+        if w >= max(max_deg, 1):
+            break
+        w *= 2
+    levels = sorted(levels[-max_slabs:])
+    level = np.minimum(
+        np.searchsorted(np.asarray(levels, dtype=np.int64), v_deg,
+                        side="left"),
+        len(levels) - 1)
+    if val.size == 0:  # fully empty matrix: keep gathers in bounds
+        val = np.zeros(1, dtype=val.dtype)
+        col = np.zeros(1, dtype=col.dtype)
 
-        if not vals:  # empty matrix
-            vals = [np.zeros((1, LANES), dtype=val.dtype)]
-            cols = [np.zeros((1, LANES), dtype=np.int32)]
-            widths = [1]
-            lens = [np.zeros(LANES, dtype=np.int32)]
+    vals, cols, widths, lens = [], [], [], []
+    vpos = np.zeros(mv, dtype=np.int32)
+    offset = 0
+    lev_of_order = level[order]
+    for li, w in enumerate(levels):
+        rows = order[lev_of_order == li]
+        if rows.size == 0:
+            continue
+        rpad = _round_up(rows.size, LANES)
+        d = np.minimum(v_deg[rows], w)
+        idx = v_rpt[rows][None, :] + np.arange(w)[:, None]
+        mask = np.arange(w)[:, None] < d[None, :]
+        idx = np.where(mask, idx, 0)
+        # padding slots replicate the row's last valid column (value 0)
+        last_idx = np.minimum(v_rpt[rows] + np.maximum(d - 1, 0),
+                              col.size - 1)
+        lastcol = np.where(d > 0, col[last_idx], 0).astype(np.int32)
+        sval = np.zeros((w, rpad), dtype=val.dtype)
+        scol = np.zeros((w, rpad), dtype=np.int32)
+        sval[:, : rows.size] = np.where(mask, val[idx], 0)
+        scol[:, : rows.size] = np.where(mask, col[idx], lastcol[None, :])
+        vpos[rows] = offset + np.arange(rows.size, dtype=np.int32)
+        ln = np.zeros(rpad, dtype=np.int32)
+        ln[: rows.size] = d
+        vals.append(sval)
+        cols.append(scol)
+        lens.append(ln)
+        widths.append(w)
+        offset += rpad
 
-        ell = cls.from_numpy(vals, cols, pos, (m, n), widths, a.nnz, lens,
-                             split_rows, split_slots)
-        # irregular columns: when a meaningful fraction of slots falls off
-        # the gather classes, plan the x expansion as a shuffle
-        slots = [c.size for c in cols]
-        bad = sum(g.class_fracs["fallback"] * s
-                  for g, s in zip(ell.cols_gp, slots)) / max(sum(slots), 1)
-        want_xsh = bad > XSH_BAD_FRAC if xshuffle is None else xshuffle
-        if not (want_xsh and sum(slots) >= XSH_MIN_SLOTS):
-            return ell
-        return dataclasses.replace(ell, **_xshuffle_plans(cols))
+    # original-row pos = first chunk's slot; extra chunks recombine
+    pos = np.zeros(m, dtype=np.int32)
+    pos[v_parent[first_chunk]] = vpos[first_chunk]
+    split_rows = split_slots = None
+    extra = ~first_chunk
+    if extra.any():
+        er = v_parent[extra]
+        es = vpos[extra]
+        o2 = np.argsort(er, kind="stable")
+        er, es = er[o2], es[o2]
+        f2 = np.flatnonzero(np.diff(np.concatenate([[-1], er])) != 0)
+        cnt2 = np.diff(np.concatenate([f2, [er.size]]))
+        split_rows = er[f2].astype(np.int32)
+        split_slots = np.full((f2.size, int(cnt2.max())), -1, np.int32)
+        kk = np.arange(er.size, dtype=np.int64) - np.repeat(f2, cnt2)
+        split_slots[np.repeat(np.arange(f2.size), cnt2), kk] = es
+
+    if not vals:  # empty matrix
+        vals = [np.zeros((1, LANES), dtype=val.dtype)]
+        cols = [np.zeros((1, LANES), dtype=np.int32)]
+        widths = [1]
+        lens = [np.zeros(LANES, dtype=np.int32)]
+
+    return (vals, cols, pos, (m, n), widths, a.nnz, lens, split_rows,
+            split_slots)
 
 
 def _xshuffle_plans(cols, src=None) -> dict:

@@ -19,6 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from nsparse_tpu_torch.buildlib import PKG_DIR, build_shared
+from nsparse_tpu_torch.utils import profiling
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu",
@@ -193,11 +194,21 @@ def _raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def launch(what: str, name: str, *args) -> None:
+def launch(what: str, name: str, *args, _recorded: bool = False) -> None:
     """Call the C entry point ``name`` with ``args`` and PyTorch's current
     stream, on the device of the tensors in ``args``; each tensor is
     passed as its data pointer.  The tensors are checked (``validate``)
-    before the kernel library is touched; a CUDA error raises."""
+    before the kernel library is touched; a CUDA error raises.
+
+    While the recorder is on (``utils.profiling``), the launch's host time
+    adds to the span ``launch`` (in the aggregates only, never in the
+    profiler's trace) and a launch that returned to the counter
+    ``launch.<name>``."""
+    if profiling.RECORDING and not _recorded:
+        with profiling.span("launch", trace=False):
+            launch(what, name, *args, _recorded=True)
+        profiling.count("launch." + name)
+        return
     device, dtype, c_args = validate(what, *args)
     fn = _RESOLVED.get((name, dtype)) or resolve(name, dtype)
     current = _current_device()

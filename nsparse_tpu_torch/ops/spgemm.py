@@ -30,6 +30,7 @@ import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
 from nsparse_tpu_torch.utils.device import int32_tensor, to_device
+from nsparse_tpu_torch.utils.profiling import host_read, span, synced
 
 LANES = 128
 CHUNK = 512  # slab chunk width: entries with more products are split
@@ -150,7 +151,8 @@ class SpgemmPlan:
         return 2 * self.n_products
 
     def to(self, device) -> "SpgemmPlan":
-        return to_device(self, device)
+        with span("prep.to_device"):
+            return to_device(self, device)
 
 
 def _ceil_pow2(x: np.ndarray) -> np.ndarray:
@@ -354,17 +356,19 @@ def _host_symbolic(a: CSR, b: CSR):
 
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
-    m, n = a.shape[0], b.shape[1]
-    rpt_a, col_a, _ = a.host_arrays()
-    rpt_b, col_b, _ = b.host_arrays()
-    col_a = col_a[: a.nnz].astype(np.int64)
-    deg_a = np.diff(rpt_a).astype(np.int64)
-    deg_b = np.diff(rpt_b).astype(np.int64)
-    args = (rpt_a, col_a, deg_a, rpt_b, col_b[: b.nnz], deg_b, m, n, a.nnz)
-    host, planner = spgemm_plan_host_native(*args), "native"
-    if host is None:
-        host, planner = spgemm_plan_host_numpy(*args), "numpy"
-    return host, planner, (rpt_a, col_a, deg_a, rpt_b, deg_b)
+    with span("prep.symbolic"):
+        m, n = a.shape[0], b.shape[1]
+        rpt_a, col_a, _ = a.host_arrays()
+        rpt_b, col_b, _ = b.host_arrays()
+        col_a = col_a[: a.nnz].astype(np.int64)
+        deg_a = np.diff(rpt_a).astype(np.int64)
+        deg_b = np.diff(rpt_b).astype(np.int64)
+        args = (rpt_a, col_a, deg_a, rpt_b, col_b[: b.nnz], deg_b, m, n,
+                a.nnz)
+        host, planner = spgemm_plan_host_native(*args), "native"
+        if host is None:
+            host, planner = spgemm_plan_host_numpy(*args), "numpy"
+        return host, planner, (rpt_a, col_a, deg_a, rpt_b, deg_b)
 
 
 def spgemm_symbolic_nnz(a: CSR, b: CSR) -> int:
@@ -471,51 +475,54 @@ def spgemm_plan(a: CSR, b: CSR, shuffle: bool | None = None,
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     host, planner, (rpt_a, col_a, deg_a, rpt_b, deg_b) = _host_symbolic(a, b)
-    apos, bpos, out_pos, c_rpt, c_col, p_total, c_nnz = host
-    m = a.shape[0]
-    c_cap = _round_up(c_nnz, LANES)
-    if c_nnz:
-        # last product of each output entry: starts are where out_pos changes
-        neq = np.empty(out_pos.size, bool)
-        neq[0] = True
-        np.not_equal(out_pos[1:], out_pos[:-1], out=neq[1:])
-        first = np.flatnonzero(neq)
-        ends = np.concatenate([first[1:] - 1, [p_total - 1]]).astype(np.int32)
-    else:
-        ends = np.zeros(0, dtype=np.int32)
+    with span("prep.layout"):
+        apos, bpos, out_pos, c_rpt, c_col, p_total, c_nnz = host
+        m = a.shape[0]
+        c_cap = _round_up(c_nnz, LANES)
+        if c_nnz:
+            # last product of each output entry: starts are where out_pos
+            # changes
+            neq = np.empty(out_pos.size, bool)
+            neq[0] = True
+            np.not_equal(out_pos[1:], out_pos[:-1], out=neq[1:])
+            first = np.flatnonzero(neq)
+            ends = np.concatenate([first[1:] - 1,
+                                   [p_total - 1]]).astype(np.int32)
+        else:
+            ends = np.zeros(0, dtype=np.int32)
 
-    if shuffle is None:
-        shuffle = p_total >= (1 << 20)
-    routed = bool(shuffle and p_total and c_nnz)
-    win = glob = srt = None
-    if routed and layout in (None, "window"):
-        win = build_window_structure(
-            rpt_a, col_a, deg_a, rpt_b, deg_b, apos, bpos, out_pos, ends,
-            c_rpt, p_total, c_nnz, c_cap, m, a.nnz, b.nnz,
+        if shuffle is None:
+            shuffle = p_total >= (1 << 20)
+        routed = bool(shuffle and p_total and c_nnz)
+        win = glob = srt = None
+        if routed and layout in (None, "window"):
+            win = build_window_structure(
+                rpt_a, col_a, deg_a, rpt_b, deg_b, apos, bpos, out_pos, ends,
+                c_rpt, p_total, c_nnz, c_cap, m, a.nnz, b.nnz,
+            )
+            if win is None and layout == "window":
+                raise ValueError(
+                    "layout='window' requested but no row fits a window arena")
+        if routed and win is None:
+            glob = _global_structure(col_a, rpt_b, deg_b, apos, bpos, ends,
+                                     p_total, c_cap, a.nnz)
+        if not routed:
+            srt = _sort_structure(apos, bpos, out_pos, ends, p_total, c_cap)
+        return SpgemmPlan(
+            c_rpt=int32_tensor(c_rpt),
+            c_col=int32_tensor(_pad(c_col, c_cap, 0)),
+            shape=(m, b.shape[1]),
+            c_nnz=int(c_nnz),
+            n_products=int(p_total),
+            layout="window" if win is not None else
+            "global" if glob is not None else "sort",
+            planner=planner,
+            nnz_a=a.nnz,
+            nnz_b=b.nnz,
+            win=win,
+            glob=glob,
+            srt=srt,
         )
-        if win is None and layout == "window":
-            raise ValueError(
-                "layout='window' requested but no row fits a window arena")
-    if routed and win is None:
-        glob = _global_structure(col_a, rpt_b, deg_b, apos, bpos, ends,
-                                 p_total, c_cap, a.nnz)
-    if not routed:
-        srt = _sort_structure(apos, bpos, out_pos, ends, p_total, c_cap)
-    return SpgemmPlan(
-        c_rpt=int32_tensor(c_rpt),
-        c_col=int32_tensor(_pad(c_col, c_cap, 0)),
-        shape=(m, b.shape[1]),
-        c_nnz=int(c_nnz),
-        n_products=int(p_total),
-        layout="window" if win is not None else
-        "global" if glob is not None else "sort",
-        planner=planner,
-        nnz_a=a.nnz,
-        nnz_b=b.nnz,
-        win=win,
-        glob=glob,
-        srt=srt,
-    )
 
 
 def spgemm_plan_device(a: CSR, b: CSR) -> SpgemmPlan:
@@ -536,63 +543,68 @@ def spgemm_plan_device(a: CSR, b: CSR) -> SpgemmPlan:
             "use spgemm_plan for larger shapes"
         )
     dev = a.col.device
-    col_a = a.col[: a.nnz].long()
-    rpt_b = b.rpt.to(dev).long()
-    cnt = rpt_b.diff()[col_a]
-    p_total = int(cnt.sum())  # sync 1: sizes the expansion
-    p_pad = _round_up(p_total, LANES)
-    k = torch.repeat_interleave(torch.arange(a.nnz, device=dev), cnt,
-                                output_size=p_total)
-    t_in = torch.arange(p_total, device=dev) - (cnt.cumsum(0) - cnt)[k]
-    bpos = rpt_b[col_a[k]] + t_in
-    row = torch.repeat_interleave(
-        torch.arange(m, device=dev), a.rpt.long().diff(),
-        output_size=a.nnz)[k]
-    # M * N < 2^31: the packed key sorts as int32, in half the passes
-    key, order = torch.sort((row * n + b.col.to(dev).long()[bpos]).int(),
-                            stable=True)
-    new = torch.ones(p_total, dtype=torch.bool, device=dev)
-    new[1:] = key[1:] != key[:-1]
-    c_nnz = int(new.sum())  # sync 2: sizes C
-    c_cap = _round_up(c_nnz, LANES)
-    starts = torch.nonzero(new).squeeze(1)
-    ends = torch.full((c_cap,), max(p_total - 1, 0), dtype=torch.long,
-                      device=dev)
-    ends[: max(c_nnz - 1, 0)] = starts[1:] - 1
-    lens = ends[:c_nnz] - torch.cat([starts.new_full((1,), -1),
-                                     ends[: max(c_nnz - 1, 0)]])
-    max_len = int(lens.max()) if c_nnz else 0  # sync 3: the scan's reach
-    entry_key = key[starts]
-    c_col = torch.zeros(c_cap, dtype=torch.int32, device=dev)
-    c_col[:c_nnz] = entry_key % n
-    # entries sorted by row: row i starts at the first key of row i
-    c_rpt = torch.searchsorted(
-        entry_key, torch.arange(m + 1, device=dev, dtype=torch.int32) * n
-    ).int()
+    with span("plan_device.expand"):
+        col_a = a.col[: a.nnz].long()
+        rpt_b = b.rpt.to(dev).long()
+        cnt = rpt_b.diff()[col_a]
+        p_total = host_read(cnt.sum(), "p_total")  # sizes the expansion
+        p_pad = _round_up(p_total, LANES)
+        k = torch.repeat_interleave(torch.arange(a.nnz, device=dev), cnt,
+                                    output_size=p_total)
+        t_in = torch.arange(p_total, device=dev) - (cnt.cumsum(0) - cnt)[k]
+        bpos = rpt_b[col_a[k]] + t_in
+        row = torch.repeat_interleave(
+            torch.arange(m, device=dev), a.rpt.long().diff(),
+            output_size=a.nnz)[k]
+    with span("plan_device.sort"):
+        # M * N < 2^31: the packed key sorts as int32, in half the passes
+        key, order = torch.sort(
+            (row * n + b.col.to(dev).long()[bpos]).int(), stable=True)
+    with span("plan_device.boundaries"):
+        new = torch.ones(p_total, dtype=torch.bool, device=dev)
+        new[1:] = key[1:] != key[:-1]
+        c_nnz = host_read(new.sum(), "c_nnz")  # sizes C
+        c_cap = _round_up(c_nnz, LANES)
+        with synced("nonzero"):
+            starts = torch.nonzero(new).squeeze(1)
+        ends = torch.full((c_cap,), max(p_total - 1, 0), dtype=torch.long,
+                          device=dev)
+        ends[: max(c_nnz - 1, 0)] = starts[1:] - 1
+        lens = ends[:c_nnz] - torch.cat([starts.new_full((1,), -1),
+                                         ends[: max(c_nnz - 1, 0)]])
+        # the scan's reach
+        max_len = host_read(lens.max(), "max_len") if c_nnz else 0
+        entry_key = key[starts]
+        c_col = torch.zeros(c_cap, dtype=torch.int32, device=dev)
+        c_col[:c_nnz] = entry_key % n
+        # entries sorted by row: row i starts at the first key of row i
+        c_rpt = torch.searchsorted(
+            entry_key, torch.arange(m + 1, device=dev, dtype=torch.int32) * n
+        ).int()
 
-    def padded(x, fill):
-        out = torch.full((p_pad,), fill, dtype=torch.int32, device=dev)
-        out[:p_total] = x
-        return out
+        def padded(x, fill):
+            out = torch.full((p_pad,), fill, dtype=torch.int32, device=dev)
+            out[:p_total] = x
+            return out
 
-    return SpgemmPlan(
-        c_rpt=c_rpt,
-        c_col=c_col,
-        shape=(m, n),
-        c_nnz=c_nnz,
-        n_products=p_total,
-        layout="sort",
-        planner="device",
-        nnz_a=a.nnz,
-        nnz_b=b.nnz,
-        srt=SortStructure(
-            apos=padded(k[order], 0),
-            bpos=padded(bpos[order], 0),
-            out_pos=padded(new.cumsum(0) - 1, c_cap),
-            ends=ends.clamp(0, p_pad - 1).int(),
-            max_len=max_len,
-        ),
-    )
+        return SpgemmPlan(
+            c_rpt=c_rpt,
+            c_col=c_col,
+            shape=(m, n),
+            c_nnz=c_nnz,
+            n_products=p_total,
+            layout="sort",
+            planner="device",
+            nnz_a=a.nnz,
+            nnz_b=b.nnz,
+            srt=SortStructure(
+                apos=padded(k[order], 0),
+                bpos=padded(bpos[order], 0),
+                out_pos=padded(new.cumsum(0) - 1, c_cap),
+                ends=ends.clamp(0, p_pad - 1).int(),
+                max_len=max_len,
+            ),
+        )
 
 
 def plan_from_numpy(arrays: dict, extras: dict, expand) -> SpgemmPlan:
@@ -723,8 +735,11 @@ def _segment_sums(plan: SpgemmPlan, prod: torch.Tensor) -> torch.Tensor:
         ends = s.ends[:nnz].long()
         v = prod[: plan.n_products]
         first = torch.zeros(v.numel(), dtype=torch.bool, device=v.device)
-        first[0] = True
-        first[ends[:-1] + 1] = True  # a segment start lies at or before i
+        # each assignment copies its host scalar to the card and waits
+        with synced("scan_head"):
+            first[0] = True
+        with synced("scan_starts"):
+            first[ends[:-1] + 1] = True  # a segment start lies at or before i
         d = 1
         while d < s.max_len:
             add = torch.where(first[d:], 0, v[:-d])
@@ -749,14 +764,16 @@ def spgemm_numeric_sort(plan: SpgemmPlan, a: CSR, b: CSR) -> CSR:
     if not (p and plan.c_nnz):
         return _csr(plan, torch.zeros(plan.c_capacity, dtype=a.val.dtype,
                                       device=a.val.device))
-    if s.av_gp is None:
-        prod = a.val[s.apos[:p].long()] * b.val[s.bpos[:p].long()]
-    else:
-        bv_bp = flat_gather(s.bv_gp, b.val[s.uniq_bpos.long()])
-        bv = torch.zeros_like(bv_bp)
-        bv[s.bp_rank[:p].long()] = bv_bp[:p]
-        prod = flat_gather(s.av_gp, a.val, other=bv)
-    return _csr(plan, _segment_sums(plan, prod))
+    with span("numeric.sort.products"):
+        if s.av_gp is None:
+            prod = a.val[s.apos[:p].long()] * b.val[s.bpos[:p].long()]
+        else:
+            bv_bp = flat_gather(s.bv_gp, b.val[s.uniq_bpos.long()])
+            bv = torch.zeros_like(bv_bp)
+            bv[s.bp_rank[:p].long()] = bv_bp[:p]
+            prod = flat_gather(s.av_gp, a.val, other=bv)
+    with span("numeric.sort.segsum"):
+        return _csr(plan, _segment_sums(plan, prod))
 
 
 def spgemm_numeric_slab(plan: SpgemmPlan, a: CSR, b: CSR, ops=None) -> CSR:
@@ -771,15 +788,16 @@ def spgemm_numeric_slab(plan: SpgemmPlan, a: CSR, b: CSR, ops=None) -> CSR:
 
     ops = ops or KERNEL_OPS
     g = plan.glob
-    table = piecewise.build_table(g.pw, g.b8_idx, b.val, ops.bank)
-    prod = piecewise.expand_from_bank(g.pw, a.val, table, ops.gather,
-                                      ops.pieces, ops.tiles8, ops.pieces_flat,
-                                      ops.scatter)
-    res = slab_class_reduce(ops.gather(prod, g.slab_shuffle.idx),
-                            g.slab_levels, g.lvl_idx)
-    c_val = ops.gather(res, g.asm_shuffle.idx)[: plan.c_capacity]
-    c_val[plan.c_nnz :] = 0
-    return _csr(plan, c_val)
+    with span("numeric.slab"):
+        table = piecewise.build_table(g.pw, g.b8_idx, b.val, ops.bank)
+        prod = piecewise.expand_from_bank(g.pw, a.val, table, ops.gather,
+                                          ops.pieces, ops.tiles8,
+                                          ops.pieces_flat, ops.scatter)
+        res = slab_class_reduce(ops.gather(prod, g.slab_shuffle.idx),
+                                g.slab_levels, g.lvl_idx)
+        c_val = ops.gather(res, g.asm_shuffle.idx)[: plan.c_capacity]
+        c_val[plan.c_nnz :] = 0
+        return _csr(plan, c_val)
 
 
 def spgemm_numeric(plan: SpgemmPlan, a: CSR, b: CSR) -> CSR:
@@ -790,12 +808,13 @@ def spgemm_numeric(plan: SpgemmPlan, a: CSR, b: CSR) -> CSR:
     """
     from nsparse_tpu_torch.ops.spgemm_window import spgemm_numeric_window
 
-    _check_numeric_inputs(plan, a, b)
-    if plan.layout == "window":
-        return spgemm_numeric_window(plan, a, b)
-    if plan.layout == "global":
-        return spgemm_numeric_slab(plan, a, b)
-    return spgemm_numeric_sort(plan, a, b)
+    with span("spgemm_numeric"):
+        _check_numeric_inputs(plan, a, b)
+        if plan.layout == "window":
+            return spgemm_numeric_window(plan, a, b)
+        if plan.layout == "global":
+            return spgemm_numeric_slab(plan, a, b)
+        return spgemm_numeric_sort(plan, a, b)
 
 
 def spgemm_numeric_segsum(plan: SpgemmPlan, a: CSR, b: CSR) -> CSR:
@@ -827,24 +846,25 @@ def spgemm(a: CSR, b: CSR, plan: SpgemmPlan | None = None,
     picks "device", as the JAX package does.  Callers who re-multiply the
     same structure should build ``spgemm_plan`` once and pass it.
     """
-    if method not in ("esc", "bsr", "auto"):
-        raise ValueError(f"unknown method {method!r}")
-    if planner not in PLANNERS:
-        raise ValueError(f"unknown planner {planner!r}")
-    if method == "auto":
-        from nsparse_tpu_torch.ops.spgemm_bsr import choose_spgemm_path
+    with span("spgemm"):
+        if method not in ("esc", "bsr", "auto"):
+            raise ValueError(f"unknown method {method!r}")
+        if planner not in PLANNERS:
+            raise ValueError(f"unknown planner {planner!r}")
+        if method == "auto":
+            from nsparse_tpu_torch.ops.spgemm_bsr import choose_spgemm_path
 
-        method = choose_spgemm_path(a, b) if plan is None else "esc"
-    if method == "bsr":
-        if plan is not None:
-            raise ValueError(
-                "a precomputed ESC plan was supplied with method='bsr'; "
-                "use method='esc' (or 'auto') to reuse it"
-            )
-        from nsparse_tpu_torch.ops.spgemm_bsr import spgemm_bsr
+            method = choose_spgemm_path(a, b) if plan is None else "esc"
+        if method == "bsr":
+            if plan is not None:
+                raise ValueError(
+                    "a precomputed ESC plan was supplied with method='bsr'; "
+                    "use method='esc' (or 'auto') to reuse it"
+                )
+            from nsparse_tpu_torch.ops.spgemm_bsr import spgemm_bsr
 
-        return spgemm_bsr(a, b)
-    if plan is None:
-        plan = (spgemm_plan(a, b).to(a.val.device) if planner == "host"
-                else spgemm_plan_device(a, b))
-    return spgemm_numeric(plan, a, b)
+            return spgemm_bsr(a, b)
+        if plan is None:
+            plan = (spgemm_plan(a, b).to(a.val.device) if planner == "host"
+                    else spgemm_plan_device(a, b))
+        return spgemm_numeric(plan, a, b)

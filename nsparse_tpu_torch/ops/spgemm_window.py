@@ -60,6 +60,7 @@ from nsparse_tpu_torch.ops.kernels.window_fused import (
 )
 from nsparse_tpu_torch.tune import kernelgen
 from nsparse_tpu_torch.utils.device import int32_tensor, to_device
+from nsparse_tpu_torch.utils.profiling import span
 
 LANES = 128           # E-arena phase granule of the JAX plan (kept for parity)
 GAP_CHUNK = 1024      # zero runs are cut into chunks of at most this length
@@ -1156,26 +1157,38 @@ def spgemm_numeric_window(plan, a: CSR, b: CSR,
     ``ops=PLAIN_OPS`` runs the plain PyTorch version of every kernel on
     the inputs' device — the reference the kernels are timed and checked
     against on the card.
+
+    Each stage is a span (``utils.profiling``): ``numeric.window.expand``
+    (v1) or ``numeric.window.delivery`` (v2), then ``.classes``,
+    ``.fallback`` and ``.merge``.
     """
     w: WindowStructure = plan.win
     res = merge_buffer(w, a.val)
     fb_seg = None
     if w.fused_expand:
-        bank, apv = v2_delivery(w, a.val, b.val, ops)
-        v2_classes(w, bank, apv, res, ops)
+        with span("numeric.window.delivery"):
+            bank, apv = v2_delivery(w, a.val, b.val, ops)
+        with span("numeric.window.classes"):
+            v2_classes(w, bank, apv, res, ops)
         if w.fb_shuffle is not None:
-            fb_seg = v2_fallback(w, a.val, bank, ops)
+            with span("numeric.window.fallback"):
+                fb_seg = v2_fallback(w, a.val, bank, ops)
     else:
-        prod = ops.expand(w.expand, a.val, b.val)
-        for (fp, out), (base, slots, _, _) in zip(_class_slices(w, res),
-                                                  w.class_geom):
-            ops.fused(fp, prod[base : base + slots], out=out)
+        with span("numeric.window.expand"):
+            prod = ops.expand(w.expand, a.val, b.val)
+        with span("numeric.window.classes"):
+            for (fp, out), (base, slots, _, _) in zip(_class_slices(w, res),
+                                                      w.class_geom):
+                ops.fused(fp, prod[base : base + slots], out=out)
         if w.fb_shuffle is not None:
-            fb_seg = fallback_segment(w, prod, ops)
+            with span("numeric.window.fallback"):
+                fb_seg = fallback_segment(w, prod, ops)
+    with span("numeric.window.merge"):
+        c_val = merge_segments(plan, res, fb_seg, ops)
     return CSR(
         rpt=plan.c_rpt,
         col=plan.c_col,
-        val=merge_segments(plan, res, fb_seg, ops),
+        val=c_val,
         shape=plan.shape,
         nnz=plan.c_nnz,
     )

@@ -28,6 +28,7 @@ from nsparse_tpu_torch.ops.kernels import spmv_bsr as bsr_kernel
 from nsparse_tpu_torch.ops.kernels.flat_gather import flat_gather
 from nsparse_tpu_torch.ops.kernels.shuffle import planned_shuffle
 from nsparse_tpu_torch.utils.device import highest_matmul_precision
+from nsparse_tpu_torch.utils.profiling import span
 
 _INF = float("inf")
 
@@ -99,39 +100,51 @@ def spmv_ell(a: ELL, x: torch.Tensor,
     slab order, K1), else one ``flat_gather`` per slab fused with the
     multiply by the slab's values.  Other semirings mask padded slots
     with the identity through the row lengths and gather x directly.
+
+    Stages are spans (``utils.profiling``): ``spmv.gather_x`` (the
+    x-shuffle plans), ``spmv.slabs`` (each slab's products and sums) and
+    ``spmv.rows`` (the slab outputs to rows, split rows folded in).
     """
     if semiring != "plus_times":
         _, combine, ident, reduce_e = SEMIRINGS[semiring]
         outs = []
-        for val, col, ln in zip(a.vals, a.cols, a.lens):
-            w = val.shape[0]
-            g = combine(val, x[col.long()])
-            valid = (torch.arange(w, device=ln.device)[:, None]
-                     < ln[None, :])
-            g = torch.where(valid, g, ident)
-            acc = g[0]
-            for wi in range(1, w):
-                acc = reduce_e(acc, g[wi])
-            outs.append(acc)
-        y_all = torch.cat(outs)
-        return _apply_row_splits(a, y_all[a.pos.long()], y_all, semiring)
+        with span("spmv.slabs"):
+            for val, col, ln in zip(a.vals, a.cols, a.lens):
+                w = val.shape[0]
+                g = combine(val, x[col.long()])
+                valid = (torch.arange(w, device=ln.device)[:, None]
+                         < ln[None, :])
+                g = torch.where(valid, g, ident)
+                acc = g[0]
+                for wi in range(1, w):
+                    acc = reduce_e(acc, g[wi])
+                outs.append(acc)
+        with span("spmv.rows"):
+            y_all = torch.cat(outs)
+            return _apply_row_splits(a, y_all[a.pos.long()], y_all,
+                                     semiring)
 
     outs = []
     if a.xsh is not None:
-        xg = planned_shuffle(
-            a.xsh, flat_gather(a.xfill_gp, flat_gather(a.uniq_cols_gp, x)))
-        off = 0
-        for val in a.vals:
-            sl = xg[off: off + val.numel()].reshape(val.shape)
-            outs.append((val * sl).sum(dim=0))
-            off += val.numel()
+        with span("spmv.gather_x"):
+            xg = planned_shuffle(
+                a.xsh,
+                flat_gather(a.xfill_gp, flat_gather(a.uniq_cols_gp, x)))
+        with span("spmv.slabs"):
+            off = 0
+            for val in a.vals:
+                sl = xg[off: off + val.numel()].reshape(val.shape)
+                outs.append((val * sl).sum(dim=0))
+                off += val.numel()
     else:
-        for val, gp in zip(a.vals, a.cols_gp):
-            g = flat_gather(gp, x, other=val.reshape(-1))
-            outs.append(g.reshape(val.shape).sum(dim=0))
-    y_all = torch.cat(outs)
-    return _apply_row_splits(a, flat_gather(a.pos_gp, y_all), y_all,
-                             semiring)
+        with span("spmv.slabs"):
+            for val, gp in zip(a.vals, a.cols_gp):
+                g = flat_gather(gp, x, other=val.reshape(-1))
+                outs.append(g.reshape(val.shape).sum(dim=0))
+    with span("spmv.rows"):
+        y_all = torch.cat(outs)
+        return _apply_row_splits(a, flat_gather(a.pos_gp, y_all), y_all,
+                                 semiring)
 
 
 def spmv_coo(a: COO, x: torch.Tensor) -> torch.Tensor:
@@ -211,21 +224,24 @@ def spmv(a, x: torch.Tensor, semiring: str = "plus_times") -> torch.Tensor:
     ``semiring`` applies to CSR, ELL and DIA; BSR and COO take
     ``plus_times`` only.  A BSR with (128, 128) tiles goes through K8.
     """
-    x = x.to(a.dtype)
-    if isinstance(a, CSR):
-        return spmv_csr(a, x, semiring=semiring)
-    if isinstance(a, COO):
-        if semiring != "plus_times":
-            raise NotImplementedError("COO SpMV supports plus_times only")
-        return spmv_coo(a, x)
-    if isinstance(a, DIA):
-        return spmv_dia(a, x, semiring=semiring)
-    if isinstance(a, ELL):
-        return spmv_ell(a, x, semiring=semiring)
-    if isinstance(a, BSR):
-        if semiring != "plus_times":
-            raise NotImplementedError("BSR SpMV supports plus_times only")
-        if a.blocksize == (bsr_kernel.PB, bsr_kernel.PB):
-            return bsr_kernel.spmv_bsr(a, x)
-        return spmv_bsr(a, x)
-    raise TypeError(f"unsupported format {type(a)}")
+    with span("spmv"):
+        x = x.to(a.dtype)
+        if isinstance(a, CSR):
+            return spmv_csr(a, x, semiring=semiring)
+        if isinstance(a, COO):
+            if semiring != "plus_times":
+                raise NotImplementedError(
+                    "COO SpMV supports plus_times only")
+            return spmv_coo(a, x)
+        if isinstance(a, DIA):
+            return spmv_dia(a, x, semiring=semiring)
+        if isinstance(a, ELL):
+            return spmv_ell(a, x, semiring=semiring)
+        if isinstance(a, BSR):
+            if semiring != "plus_times":
+                raise NotImplementedError(
+                    "BSR SpMV supports plus_times only")
+            if a.blocksize == (bsr_kernel.PB, bsr_kernel.PB):
+                return bsr_kernel.spmv_bsr(a, x)
+            return spmv_bsr(a, x)
+        raise TypeError(f"unsupported format {type(a)}")
