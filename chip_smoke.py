@@ -35,9 +35,19 @@ Phases (any failure exits non-zero before the final line):
        spgemm-sort              R-MAT-14, ``shuffle=False``: the K5/K1/K6
                                 launches of its two gather plans (K5 once
                                 per plan), two runs equal;
-       spgemm-oneshot           ``nt.spgemm(a, a)``, the device planner:
-                                no kernel launched; plan and numeric phase
-                                timed whole beside cuSPARSE;
+       spgemm-oneshot           ``nt.spgemm(a, a)`` without a plan, the
+                                hash path (``hash_phase``), on R-MAT-14
+                                and a Graph500 scale-15 graph, f32 and
+                                f64: ``rpt`` and ``col`` equal to
+                                ``planner="device"``'s, values within 1e-5
+                                / 1e-8 of |A||B|, a launch per route with
+                                rows, two host reads, rows per route and
+                                peak memory, timed beside the ESC path,
+                                cuSPARSE and its bound; then empty rows, a
+                                row covering all N columns, every row in
+                                the tail route (dense in three passes;
+                                device-memory tables), exact cancellation
+                                kept in C, and M * N = 2^32;
   3c. the plan cache: the five host plans above (window v2 and v1,
      global and sort on R-MAT-14, global unaligned on R-MAT-16) saved
      (file MB, host s) and loaded (host s, index tables checked), run on
@@ -190,6 +200,10 @@ UNALIGNED_COUNTS = (253_066, 35_482_345, 394_296, 3136)
 # values, a quarter of them at each fold factor K in (1, 2, 4, 8)
 KFOLD_OUT, KFOLD_RUN_MAX = 1 << 24, 4096
 TRIALS = 20
+# the hash SpGEMM phase: a Graph500 graph at the one-shot cell's scale,
+# and the width of its full-row case
+HASH_G500 = dict(scale=15, edge_factor=16, seed=1)
+HASH_WIDE = 40_000  # the dense route in two passes (f32), three (f64)
 RMAT_SCALE, RMAT_EF, RMAT_SEED = 20, 16, 2
 STENCIL = 2048
 FEM = dict(n_nodes=4096, dof=16, neighbors=6, bandwidth=24, seed=3)
@@ -435,6 +449,8 @@ class Smoke:
         self.calls = {k: [] for k in KERNELS}     # [(path, args)]
         self.launches = {k: 0 for k in KERNELS}
         self.path_launches = {}                   # path: {kernel: count}
+        # the hash SpGEMM's timings, for the closing table
+        self.hash_rows = []
         # the host plans of the SpGEMM paths, for the plan cache phase:
         # name: (A, plan, the path whose launch counts it must repeat)
         self.host_plans = {}
@@ -1182,15 +1198,13 @@ def sort_launches(srt) -> dict:
 
 
 def esc_layout_phases(s: Smoke) -> None:
-    """The host plan's other layouts and the one-shot device planner.
+    """The host plan's other layouts.
     spgemm-global: R-MAT-14 in the global slab layout (aligned pieces),
     C equal in structure to the window C and its values within 1e-5 of
     |A||B| of it; spgemm-global-unaligned: R-MAT-16 (edge factor 4), whose
     B table exceeds the bank, in the flat piece mode; spgemm-sort:
-    R-MAT-14 below the routed layouts (``shuffle=False``), two runs equal;
-    spgemm-oneshot: ``nt.spgemm`` with its default planner, plan and
-    numeric phase timed whole, no kernel launched (as in the JAX
-    package), and again on new values in float32 and float64."""
+    R-MAT-14 below the routed layouts (``shuffle=False``), two runs
+    equal.  The one-shot ``nt.spgemm`` is ``hash_phase``'s."""
     torch, nt = s.torch, s.nt
     from nsparse_tpu_torch.ops.kernels.piecewise import (
         BANK_ROWS_MAX,
@@ -1259,30 +1273,368 @@ def esc_layout_phases(s: Smoke) -> None:
     profile_calls(torch, sort_run, "sort-layout numeric", calls=3)
     del plan, plan_d, c, again
 
-    def oneshot():
-        return nt.spgemm(a_d, a_d)
 
-    c = s.counted(oneshot, [], "spgemm-oneshot")
-    if s.path_launches["spgemm-oneshot"]:
-        fail("the one-shot device-planned product launched port kernels")
-    check_c(s, c, a, "spgemm-oneshot: C")
-    v2 = np.random.default_rng(SEED + 2).standard_normal(a.nnz)
-    for dt in (np.float32, np.float64):
-        a2 = a.with_values(torch.from_numpy(v2.astype(dt)))
-        a2_d = a2.to(s.dev)
-        check_c(s, nt.spgemm(a2_d, a2_d), a2,
-                f"spgemm-oneshot: new {np.dtype(dt).name} values")
-    t0 = time.perf_counter()
-    oneshot()
+def g500_graph(nt, scale: int, edge_factor: int, seed: int):
+    """A Graph500 Kronecker graph (A = 0.57, B = C = 0.19) in kernel 1's
+    undirected form (each edge both ways, duplicates merged), weights
+    uniform in [0, 1), float32."""
+    m = nt.rmat_csr(scale, edge_factor, seed=seed).to_scipy()
+    m.data[:] = 1.0
+    u = (m + m.T).tocsr()
+    u.sum_duplicates()
+    u.data = np.random.default_rng(seed).random(u.nnz).astype(np.float32)
+    return nt.CSR.from_scipy(u)
+
+
+def with_dtype_values(a, dtype):
+    """``a`` with its values cast to ``dtype`` (numpy)."""
+    import torch
+
+    return a.with_values(torch.from_numpy(a.val.numpy().astype(dtype)))
+
+
+def hash_call(s: Smoke, a_d, b_d):
+    """One ``nt.spgemm(a_d, b_d)`` (the hash path) under the recorder:
+    (C, the recorder's counters, peak device bytes above the inputs)."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.utils import profiling
+
+    profiling.reset()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    ms = s.time_cuda(oneshot, trials=TRIALS)
-    lib_ms = cusparse_spgemm_ms(s, a, "spgemm-oneshot")
-    print(f"spgemm-oneshot (device plan + numeric) [{s.name}, {s.card}]: "
-          f"{ms:.4f} ms by CUDA events, {wall_ms:.4f} ms host wall of one "
-          f"call; cuSPARSE CSR A @ A (plans in every call too) "
-          f"{fmt_ms(lib_ms)} ms", flush=True)
-    profile_calls(torch, oneshot, "one-shot SpGEMM", calls=3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profiling.recording():
+        c = nt.spgemm(a_d, b_d)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    if not any(k.startswith("launch.nsp_hash_") for k in counters):
+        fail("hash path: no launch of csrc/spgemm_hash.cu recorded")
+    return c, counters, peak
+
+
+def route_lines(counters) -> str:
+    """The rows a route took and the launches, from the recorder."""
+    rows = {k[len("spgemm_hash.rows."):]: v for k, v in counters.items()
+            if k.startswith("spgemm_hash.rows.") and v}
+    launches = {k[len("launch."):]: v for k, v in counters.items()
+                if k.startswith("launch.nsp_hash_")}
+    return (f"rows by route {rows}; global rows "
+            f"{counters.get('spgemm_hash.global_rows', 0)}; launches "
+            f"{launches}; host reads {counters.get('sync', 0)}")
+
+
+def check_routes(counters, what: str, a, b, c) -> dict:
+    """One symbolic and one numeric launch per route that took rows, two
+    host reads, and the rows of each route those the host computes from
+    the sizes (symbolic: a row's products capped at N; numeric: its nnz)
+    by ``hash_routes``' limits.  Returns {phase: [routes with rows]}."""
+    from nsparse_tpu_torch.ops.binning import flops_per_row
+    from nsparse_tpu_torch.ops.kernels import spgemm_hash as sh
+
+    n = b.shape[1]
+    sizes = {"symbolic": flops_per_row(a, b).clamp(max=n).numpy(),
+             "numeric": np.diff(c.rpt.cpu().numpy())}
+    used = {}
+    for phase, entry in (("symbolic", "nsp_hash_symbolic"),
+                         ("numeric", "nsp_hash_numeric")):
+        routes = sh.hash_routes(phase, n, a.val.element_size())
+        bins = sh.route_of(sizes[phase], routes)
+        want = {r.name: int((bins == k).sum()) for k, r in enumerate(routes)}
+        got = {r.name: counters.get(f"spgemm_hash.rows.{phase}.{r.name}", 0)
+               for r in routes}
+        if got != want:
+            fail(f"{what}: {phase} rows by route {got}, the host's {want}")
+        used[phase] = [name for name, v in got.items() if v]
+        if counters.get(f"launch.{entry}", 0) != len(used[phase]):
+            fail(f"{what}: {counters.get(f'launch.{entry}', 0)} {phase} "
+                 f"launches for {len(used[phase])} routes with rows")
+    if counters.get("sync", 0) != 2:
+        fail(f"{what}: {counters.get('sync', 0)} host reads, not 2")
+    return used
+
+
+def hash_against_esc(s: Smoke, what: str, a, a_d, b=None, b_d=None,
+                     scipy_check=True, routes=None, every_route=False):
+    """The hash path's C against the ESC path's (``planner="device"``;
+    skipped where M * N >= 2^31, which it refuses): ``rpt`` and ``col``
+    equal (``torch.equal``), values within 1e-5 (f32) or 1e-8 (f64) of
+    |A||B|; against scipy too where asked; rows by route as
+    ``check_routes`` holds them.  ``routes``: the tail route every row
+    must take in both phases; ``every_route``: every route of both phases
+    must take rows.  Returns (C, counters, peak bytes)."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops.kernels import spgemm_hash as sh
+
+    b, b_d = (a, a_d) if b is None else (b, b_d)
+    c, counters, peak = hash_call(s, a_d, b_d)
+    used = check_routes(counters, what, a, b, c)
+    if every_route:
+        for phase in sh.PHASES:
+            names = [r.name for r in sh.hash_routes(
+                phase, b.shape[1], a.val.element_size())]
+            if used[phase] != names:
+                fail(f"{what}: {phase} routes with rows {used[phase]}, "
+                     f"not every one of {names}")
+    print(f"{what}: nnz(C) {c.nnz}; {route_lines(counters)}; peak "
+          f"{peak / 1e9:.3f} GB above the inputs", flush=True)
+    tail = bool((c.val[c.nnz:] == 0).all()) and bool((c.col[c.nnz:] == 0)
+                                                     .all())
+    if not tail:
+        fail(f"{what}: C's padded tail is not zero")
+    if a.shape[0] * b.shape[1] < 2**31:
+        ref = nt.spgemm(a_d, b_d, planner="device")
+        same = c.nnz == ref.nnz and torch.equal(c.rpt, ref.rpt) \
+            and torch.equal(c.col, ref.col)
+        scale = nt.spgemm(
+            a_d.with_values(a_d.val.abs()), b_d.with_values(b_d.val.abs()),
+            planner="device").val[: c.nnz].double()
+        gap = float(((c.val[: c.nnz].double() - ref.val[: c.nnz].double())
+                     .abs() / scale.clamp_min(1e-300)).max()) \
+            if c.nnz else 0.0
+        tol = 1e-5 if a.val.dtype == torch.float32 else 1e-8
+        print(f"{what}: rpt and col equal to the ESC path's (torch.equal) "
+              f"{same}; max |C_hash - C_esc| / (|A||B|) {gap:.3g} (within "
+              f"{tol:g}: {gap <= tol}); zero tail {tail}", flush=True)
+        if not same or gap > tol:
+            fail(f"{what}: the hash path's C differs from the ESC path's")
+        del ref, scale
+    if routes is not None:
+        for phase, name in routes.items():
+            got = {k: v for k, v in counters.items()
+                   if k.startswith(f"spgemm_hash.rows.{phase}.") and v}
+            if list(got) != [f"spgemm_hash.rows.{phase}.{name}"]:
+                fail(f"{what}: {phase} rows {got}, expected all in {name}")
+    if scipy_check and b is a:
+        check_c(s, c, a, f"{what}: C")
+    return c, counters, peak
+
+
+def hash_bound_ms(s: Smoke, a, b, c) -> float:
+    """The least time of C = A @ B: A and B read once (once if they are
+    one matrix), C written once, at the card's memory bandwidth."""
+    vb = a.val.element_size()
+
+    def csr_bytes(m, nnz):
+        return (m + 1) * 4 + nnz * (4 + vb)
+
+    nbytes = csr_bytes(a.shape[0], a.nnz) + csr_bytes(c.shape[0], c.nnz)
+    if b is not a:
+        nbytes += csr_bytes(b.shape[0], b.nnz)
+    return nbytes / s.bw * 1e3
+
+
+# products a row of ``route_ladder``'s C: one size inside each bin of both
+# phases where the hash blocks apply (pwarp, warp, the blocks of 2,048 to
+# 32,768 slots, two sizes past the largest numeric table)
+LADDER = (16, 300, 800, 1500, 3000, 6000, 12000, 30000)
+# (N, dtype) of the ladder: the routes past the warp route in the symbolic
+# and the numeric phase (hash_routes)
+LADDER_CASES = (
+    (1 << 22, np.float32),  # dense (5 passes); blocks, then dense (150)
+    (1 << 23, np.float64),  # dense (10); blocks, then device tables (591)
+    (1 << 25, np.float32),  # blocks, then device tables in both phases
+)
+
+
+def route_ladder(nt, n: int, dtype, rng, per_b: int = 8, reps: int = 4):
+    """(A, B) for C = A @ B of N = ``n`` columns whose rows span every
+    route: B is 8,192 x n with ``per_b`` random columns a row, A holds
+    ``reps`` rows for each size of ``LADDER``, each naming distinct rows of
+    B, so a row's products are about that size."""
+    import scipy.sparse as sp
+
+    k = 8192
+    lens = np.repeat(np.asarray(LADDER) // per_b, reps)
+    a_ptr = np.concatenate([[0], np.cumsum(lens)])
+    a_col = np.concatenate([np.sort(rng.choice(k, size=r, replace=False))
+                            for r in lens])
+    a = sp.csr_matrix((rng.random(a_ptr[-1]) + 0.5, a_col, a_ptr),
+                      shape=(len(lens), k))
+    b = sp.coo_matrix((rng.random(k * per_b) + 0.5,
+                       (np.repeat(np.arange(k), per_b),
+                        rng.integers(0, n, k * per_b))), shape=(k, n)).tocsr()
+    b.sum_duplicates()
+    return (nt.CSR.from_scipy(a, dtype=dtype),
+            nt.CSR.from_scipy(b, dtype=dtype))
+
+
+def hash_geometry(s: Smoke) -> None:
+    """Each hash route's kernel as launched on this card (resident blocks
+    an SM, registers and spilled bytes a thread, shared memory), at the
+    one-shot cell's N = 32768 and at N = 2^22 and 2^25 (every kernel of
+    both phases; ``LADDER_CASES``); the dense route must hold
+    two blocks an SM, as ``dense_route`` sizes it."""
+    from nsparse_tpu_torch.ops.kernels import spgemm_hash as sh
+
+    for n in (32768, 1 << 22, 1 << 25):
+        for vb in (4, 8):
+            for phase in sh.PHASES:
+                if phase == "symbolic" and vb == 8:
+                    continue  # the symbolic phase keeps no values
+                for r in sh.hash_routes(phase, n, vb):
+                    g = sh.route_geometry(phase, r, vb)
+                    print(f"hash route {phase} {r.name} N={n} "
+                          f"{'f32' if vb == 4 else 'f64'} [{s.card}]: "
+                          f"{r.threads} threads, {g['smem']} B shared, "
+                          f"{g['blocks_per_sm']} blocks an SM, "
+                          f"{g['registers']} registers, {g['spill_bytes']} "
+                          f"B spilled a thread", flush=True)
+                    if r.kind == sh.DENSE and g["blocks_per_sm"] < 2:
+                        fail(f"dense route {phase} N={n}: "
+                             f"{g['blocks_per_sm']} blocks an SM, not 2")
+
+
+def hash_phase(s: Smoke) -> None:
+    """spgemm-oneshot: ``nt.spgemm(a, a)`` without a plan takes the hash
+    path (``csrc/spgemm_hash.cu``): on R-MAT-14 and a Graph500 scale-15
+    graph, in f32 and f64, C's ``rpt`` and ``col`` equal to the ESC
+    path's (``planner="device"``) and its values within tolerance, the
+    rows per route (as the host bins them), launches per route and peak
+    memory from the recorder, timed beside the ESC path, cuSPARSE and the
+    bound; then the edge cases: empty rows, a row whose products cover all
+    N columns, every row in the tail route (dense), every route of both
+    phases (``route_ladder`` at N = 2^22 to 2^25: the dense route, the
+    hash blocks, device-memory tables),
+    products that cancel to exactly 0 (the entries stay), M * N >= 2^31
+    (the ESC path refuses it).  First each route's kernel geometry."""
+    torch, nt = s.torch, s.nt
+    import scipy.sparse as sp
+
+    hash_geometry(s)
+
+    a14 = nt.rmat_csr(SCALE, EDGE_FACTOR, dtype=np.float32, seed=SEED)
+    g15 = host_timed("generate Graph500 scale 15", lambda: g500_graph(
+        nt, **HASH_G500))
+    for name, base in ((f"R-MAT-{SCALE}", a14),
+                       (f"Graph500-{HASH_G500['scale']}", g15)):
+        for dt in (np.float32, np.float64):
+            a = with_dtype_values(base, dt)
+            a_d = a.to(s.dev)
+            what = f"spgemm-oneshot {name} {np.dtype(dt).name}"
+            small = base is a14
+            c, counters, peak = hash_against_esc(s, what, a, a_d,
+                                                 scipy_check=small)
+            trials = TRIALS if small else 5
+            ms = s.time_cuda(lambda: nt.spgemm(a_d, a_d), trials=trials)
+            t0 = time.perf_counter()
+            nt.spgemm(a_d, a_d)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            esc_ms = s.time_cuda(
+                lambda: nt.spgemm(a_d, a_d, planner="device"), trials=3)
+            lib_ms = cusparse_spgemm_ms(s, a, what)
+            bound = hash_bound_ms(s, a, a, c)
+            flops = nt.spgemm_flops(a, a)
+            print(f"{what} [{s.name}, {s.card}]: hash {ms:.4f} ms by CUDA "
+                  f"events ({flops / ms / 1e6:.2f} GFLOP/s), {wall:.4f} ms "
+                  f"host wall of one call; ESC (planner='device') "
+                  f"{esc_ms:.4f} ms; cuSPARSE CSR A @ A {fmt_ms(lib_ms)} ms; "
+                  f"bound {bound:.4f} ms (bytes); peak {peak / 1e9:.3f} GB",
+                  flush=True)
+            s.hash_rows.append(dict(
+                what=what, ms=ms, plain_ms=esc_ms, library_ms=lib_ms,
+                bound_ms=bound, peak_gb=peak / 1e9, nnz=c.nnz,
+                routes=route_lines(counters)))
+            if small and dt == np.float32:
+                profile_calls(torch, lambda: nt.spgemm(a_d, a_d),
+                              "one-shot hash SpGEMM", calls=3)
+            del c, a_d
+            torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 5)
+
+    def case(what, a, b=None, routes=None, scipy_check=True,
+             every_route=False):
+        b = a if b is None else b
+        a_d, b_d = a.to(s.dev), b.to(s.dev)
+        c, _, _ = hash_against_esc(s, what, a, a_d, b, b_d,
+                                   scipy_check=False, routes=routes,
+                                   every_route=every_route)
+        if scipy_check:
+            ok = nt.check_spgemm_answer(
+                c, nt.spgemm_oracle(a, b), verbose=True,
+                abs_ref=nt.spgemm_abs_oracle(a, b))
+            print(f"{what}: C vs scipy {'pass' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"{what}: C does not match scipy")
+        return c
+
+    for dt in (np.float32, np.float64):
+        tag = np.dtype(dt).name
+        # every third row of R-MAT-14 emptied
+        keep = (np.arange(a14.shape[0]) % 3 != 0).astype(np.float64)
+        m = (sp.diags(keep) @ a14.to_scipy()).tocsr()
+        m.eliminate_zeros()
+        case(f"hash-empty-rows {tag}", nt.CSR.from_scipy(m, dtype=dt))
+        # row 0 of A dense: with B = I + a random matrix, C's row 0 covers
+        # every column (the dense route)
+        n = HASH_WIDE
+        r = sp.random(n, n, density=4 / n, random_state=rng, format="csr")
+        r = r.tolil()
+        r[0, :] = 1.0
+        a = nt.CSR.from_scipy(r.tocsr(), dtype=dt)
+        b = nt.CSR.from_scipy(
+            (sp.identity(n) + sp.random(n, n, density=4 / n,
+                                        random_state=rng)).tocsr(), dtype=dt)
+        c = case(f"hash-full-row {tag}", a, b)
+        if int(c.rpt[1]) != n:
+            fail(f"hash-full-row {tag}: row 0 holds {int(c.rpt[1])} of {n}")
+        # every row in the tail route of both phases: the dense route in
+        # one pass (symbolic), three (f32) or five (f64)
+        n_tail = 65536
+        a = nt.CSR.from_scipy(sp.random(512, n_tail, density=300 / n_tail,
+                                        random_state=rng, format="csr"),
+                              dtype=dt)
+        b = nt.CSR.from_scipy(sp.random(n_tail, n_tail, density=100 / n_tail,
+                                        random_state=rng, format="csr"),
+                              dtype=dt)
+        case(f"hash-tail-route {tag}", a, b,
+             routes={"symbolic": "dense", "numeric": "dense"})
+        # A = [X X], B = [Y; -Y] with small integers: C's entries are sums
+        # of exact terms that cancel, 0 in every order, and stay in C
+        x = sp.random(2048, 1024, density=0.01, random_state=rng,
+                      data_rvs=lambda k: rng.integers(1, 5, k))
+        y = sp.random(1024, 2048, density=0.01, random_state=rng,
+                      data_rvs=lambda k: rng.choice([-4, -3, -2, -1, 1, 2,
+                                                     3, 4], k))
+        a = nt.CSR.from_scipy(sp.hstack([x, x]).tocsr(), dtype=dt)
+        b = nt.CSR.from_scipy(sp.vstack([y, -y]).tocsr(), dtype=dt)
+        c = case(f"hash-cancel {tag}", a, b, scipy_check=False)
+        if not c.nnz or bool(c.val[: c.nnz].any()):
+            fail(f"hash-cancel {tag}: nnz {c.nnz}, nonzero values left")
+        print(f"hash-cancel {tag}: {c.nnz} entries, every one exactly 0",
+              flush=True)
+        # every route of both phases takes rows (LADDER_CASES)
+        for n_ladder, dt_ladder in LADDER_CASES:
+            if dt_ladder == dt:
+                a, b = route_ladder(nt, n_ladder, dt, rng)
+                case(f"hash-every-route N={n_ladder} {tag}", a, b,
+                     every_route=True)
+        # M * N >= 2^31: the hash path has no packed key
+        n = 1 << 16
+        big = nt.CSR.from_scipy(sp.random(n, n, density=4 / n,
+                                          random_state=rng, format="csr"),
+                                dtype=dt)
+        big_d = big.to(s.dev)
+        try:
+            nt.spgemm(big_d, big_d, planner="device")
+            fail("the ESC path accepted M * N >= 2^31")
+        except ValueError as e:
+            print(f"hash-wide-key {tag}: the ESC path refuses it ({e})",
+                  flush=True)
+        c, counters, _ = hash_call(s, big_d, big_d)
+        check_routes(counters, f"hash-wide-key {tag}", big, big, c)
+        ok = nt.check_spgemm_answer(c, nt.spgemm_oracle(big, big),
+                                    verbose=True,
+                                    abs_ref=nt.spgemm_abs_oracle(big, big))
+        print(f"hash-wide-key {tag}: M * N = 2^32, nnz(C) {c.nnz}, C vs "
+              f"scipy {'pass' if ok else 'FAIL'}; {route_lines(counters)}",
+              flush=True)
+        if not ok:
+            fail(f"hash-wide-key {tag}: C does not match scipy")
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3018,7 +3370,8 @@ def main() -> None:
     print(f"kernels built: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(s.cuda_lib.NVCC_FLAGS)})", flush=True)
 
-    for phase in (spgemm_phase, esc_layout_phases, plan_cache_phase,
+    for phase in (spgemm_phase, esc_layout_phases, hash_phase,
+                  plan_cache_phase,
                   cli_phase, kfold_phase, spmv_phases,
                   bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,
                   bank_subset_phase, k9_phase, k1_phase, k3_k2_phase,
@@ -3029,7 +3382,7 @@ def main() -> None:
               "host time", flush=True)
     table = s.kernel_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": table, "spgemm_hash": s.hash_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": s.name,
         "count": torch.cuda.device_count()}}))

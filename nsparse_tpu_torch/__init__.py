@@ -3,8 +3,9 @@
 The JAX package ``nsparse_tpu`` is the reference; this package imports
 ``torch`` and never ``jax``.  Ported so far: ESC SpGEMM (the host plan in
 its three layouts: row-localized windows, the global slab and the sort
-layout; the one-shot device planner, the default of ``spgemm``; their
-numeric phases; the plan cache, ``tune/spgemm_cache.py``), the
+layout; the one-shot device planner; their numeric phases; the plan
+cache, ``tune/spgemm_cache.py``; without a plan on a card, the hash
+SpGEMM, ``spgemm``'s default there), the
 block-sparse SpGEMM path (``spgemm_bsr``, ``spgemm(..., method="bsr" |
 "auto")``), the SpMV path (CSR, COO, ELL, DIA and BSR formats, the
 semirings, the ``spmv`` dispatch and its tuner), Matrix Market reading
@@ -12,8 +13,10 @@ and writing, the SuiteSparse fetcher, row binning, checking, timing and
 profiling utilities, the CLI, and the distributed layer
 (``nsparse_tpu_torch.parallel``: row-sharded SpMV and SpGEMM, halo
 exchange and R·A·P over a mesh of devices).  Their kernels are hand-written CUDA
-for Hopper, twelve sources in ``csrc/`` (K1-K12, with K2's piece and
-flat modes and K4's K-fold mode), each beside its plain PyTorch version.
+for Hopper, thirteen sources in ``csrc/`` (K1-K12, with K2's piece and
+flat modes and K4's K-fold mode, each beside its plain PyTorch version;
+and the hash SpGEMM, whose plain counterpart is the device planner's
+path).
 """
 
 from nsparse_tpu_torch.formats.bsr import BSR

@@ -14,6 +14,7 @@ import os
 import shutil
 import threading
 import types
+import typing
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -25,7 +26,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu",
            "gather_subset.cu", "scatter_tiles.cu", "spmv_dia.cu",
            "spmv_bsr.cu", "spgemm_bsr.cu", "windowed_gather.cu",
-           "build_bank.cu", "gather_tiles8.cu")
+           "build_bank.cu", "gather_tiles8.cu", "spgemm_hash.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -34,6 +35,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_I64_ARRAY = ctypes.POINTER(_I64)  # a host array, read by the entry point
 _SIGNATURES = {
     "nsp_gather": [_P, _I64, _P, _P, _I64, _P],
     "nsp_expand": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
@@ -53,8 +55,17 @@ _SIGNATURES = {
     "nsp_build_bank": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P],
     "nsp_gather_tiles8": [_P, _I64, _P, _I64, _P, _P],
     "nsp_runcopy_kfold": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P],
+    "nsp_hash_bin": [_P, _P, _P, _P, _I32, _I64, _I64, _I64_ARRAY, _I32,
+                     _I32, _P, _P, _P, _P, _P],
+    "nsp_hash_scatter": [_P, _I64, _P, _I32, _P, _P],
+    "nsp_hash_symbolic": [_I32, _I64, _I32, _P, _P, _P, _P, _P, _I64, _P,
+                          _P, _P, _I64, _P, _P],
+    "nsp_hash_numeric": [_I32, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _I64,
+                         _P, _P, _P, _I64, _P, _P, _P, _P],
 }
 _F32_ONLY = {"nsp_runcopy_kfold"}  # K4's K-fold mode sums in float only
+# entry points that take no values: one build, no dtype suffix
+_INDEX_ONLY = {"nsp_hash_bin", "nsp_hash_scatter", "nsp_hash_symbolic"}
 
 
 def nvcc() -> str:
@@ -92,9 +103,12 @@ class _KernelLib:
         types_of = {"nsp_error_string": ([ctypes.c_int], ctypes.c_char_p),
                     "nsp_fused_class_geom": (
                         [_I32, _I32, _I64, _I32, _I32, _I32,
+                         ctypes.POINTER(_I32)], ctypes.c_int),
+                    "nsp_hash_geom": (
+                        [_I32, _I32, _I32, _I64, _I32,
                          ctypes.POINTER(_I32)], ctypes.c_int)}
         for name, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32",) if name in _F32_ONLY else ("_f32", "_f64"):
+            for suffix in _suffixes(name):
                 types_of[name + suffix] = (argtypes, ctypes.c_int)
         fns = {}
         for lib in libs:
@@ -110,6 +124,12 @@ class _KernelLib:
 
 
 KERNELS = _KernelLib()
+
+
+def _suffixes(name: str) -> tuple:
+    if name in _INDEX_ONLY:
+        return ("",)
+    return ("_f32",) if name in _F32_ONLY else ("_f32", "_f64")
 
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
@@ -133,11 +153,12 @@ _RESOLVED = {}  # (name, dtype): the C entry point
 
 
 def resolve(name: str, dtype: torch.dtype):
-    """The C entry point ``name`` for values of ``dtype``, looked up in
-    the kernel library once per (name, dtype)."""
+    """The C entry point ``name`` for values of ``dtype`` (None for the
+    entry points that take no values), looked up in the kernel library
+    once per (name, dtype)."""
     fn = _RESOLVED.get((name, dtype))
     if fn is None:
-        suffix = _SUFFIX.get(dtype)
+        suffix = "" if name in _INDEX_ONLY else _SUFFIX.get(dtype)
         if suffix is None:
             raise TypeError(f"{name}: values must be float32 or float64, "
                             f"got {dtype}")
@@ -145,20 +166,32 @@ def resolve(name: str, dtype: torch.dtype):
     return fn
 
 
+class Scratch(typing.NamedTuple):
+    """A kernel's own device buffer (counts, offsets) in any dtype: passed
+    as its data pointer, checked for its device and layout as a tensor
+    argument is, never for its dtype."""
+
+    t: torch.Tensor
+
+
 def validate(what: str, *args) -> tuple[int, torch.dtype | None, list]:
     """(device index, value dtype, ``args`` with each tensor replaced by
     its data pointer) for C arguments ``args``; the tensors among them
     must be contiguous on one CUDA device, indices int32 (or int16) and
-    values of one float dtype, or this raises."""
+    values of one float dtype, or this raises.  A ``Scratch`` buffer may
+    hold any dtype."""
     device, dtype, one_device, c_args = None, None, True, []
     for t in args:
         if not isinstance(t, torch.Tensor):
-            c_args.append(t)
-            continue
+            if type(t) is not Scratch:
+                c_args.append(t)
+                continue
+            t, dt = t.t, torch.int32  # its dtype is not checked
+        else:
+            dt = t.dtype  # dtypes are singletons: compared by identity
         c_args.append(t.data_ptr())
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
-        dt = t.dtype  # dtypes are singletons: compared by identity
         if dt is not torch.int32 and dt is not dtype and dt is not torch.int16:
             if not dt.is_floating_point:
                 raise ValueError(f"{what}: index arrays must be int32 or "
@@ -174,8 +207,9 @@ def validate(what: str, *args) -> tuple[int, torch.dtype | None, list]:
     if device is None:
         raise ValueError(f"{what}: no tensor to launch on")
     if device < 0 or not one_device:
-        devices = sorted({str(a.device) for a in args
-                          if isinstance(a, torch.Tensor)})
+        tensors = [a.t if type(a) is Scratch else a for a in args]
+        devices = sorted({str(t.device) for t in tensors
+                          if isinstance(t, torch.Tensor)})
         raise ValueError(f"{what}: all tensors must be on one CUDA device, "
                          f"got {devices}")
     return device, dtype, c_args

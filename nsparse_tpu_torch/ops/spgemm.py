@@ -7,7 +7,9 @@ reached through ``spgemm(..., method=)``).
   row-localized windows (``ops/spgemm_window.py``), the global slab
   layout, or the sort layout; ``spgemm_plan_device`` is the one-shot
   planner on the values' device (one sort, the sort layout without
-  gather plans).  A plan is one-time work per sparsity pattern.
+  gather plans).  A plan is one-time work per sparsity pattern.  Without
+  a plan, ``spgemm`` on CUDA values forms C through per-row hash tables
+  instead (``ops/kernels/spgemm_hash.py``), with no plan at all.
 - numeric: ``spgemm_numeric`` runs the plan's layout on the device the
   plan and the values live on; new values with the same sparsity re-run
   it on the same plan.
@@ -839,10 +841,16 @@ def spgemm(a: CSR, b: CSR, plan: SpgemmPlan | None = None,
     (dense tile products for block-clustered matrices, ``spgemm_bsr``), or
     "auto" (``choose_spgemm_path`` without a plan, else "esc").
 
-    ``planner`` (calls without a plan): "device" builds a one-shot plan on
-    the values' device (``spgemm_plan_device``: one sort, two size
-    reads), "host" the reusable host plan (``spgemm_plan``, moved to the
-    values' device: seconds of host time, the fastest re-run), "auto"
+    ``planner`` (ESC calls without a plan): "auto" on CUDA values forms C
+    in one shot through per-row hash tables in shared memory
+    (``ops/kernels/spgemm_hash.py``: rows binned by their work, a
+    symbolic count, then a numeric accumulate; two host reads, no
+    plan); its sums follow the order of the card's atomics, so C's values
+    are not bitwise repeatable from run to run (its structure is).
+    "device" builds the deterministic one-shot plan on the values' device
+    (``spgemm_plan_device``: one sort; a plan that can be reused),
+    "host" the reusable host plan (``spgemm_plan``, moved to the values'
+    device: seconds of host time, the fastest re-run).  On the CPU "auto"
     picks "device", as the JAX package does.  Callers who re-multiply the
     same structure should build ``spgemm_plan`` once and pass it.
     """
@@ -864,6 +872,10 @@ def spgemm(a: CSR, b: CSR, plan: SpgemmPlan | None = None,
             from nsparse_tpu_torch.ops.spgemm_bsr import spgemm_bsr
 
             return spgemm_bsr(a, b)
+        if plan is None and planner == "auto" and a.val.is_cuda:
+            from nsparse_tpu_torch.ops.kernels.spgemm_hash import spgemm_hash
+
+            return spgemm_hash(a, b)
         if plan is None:
             plan = (spgemm_plan(a, b).to(a.val.device) if planner == "host"
                     else spgemm_plan_device(a, b))

@@ -163,13 +163,13 @@ def synced(what: str):
 
 
 def host_read(x: torch.Tensor, what: str):
-    """The Python number (int or float, by dtype) held by the one-element
-    tensor ``x``: a device-to-host read, counted as ``sync`` and timed as
-    span ``sync.<what>``."""
+    """The Python number (int or float, by dtype) held by the 0-dim tensor
+    ``x``, or the list of them a 1-D ``x`` holds: a device-to-host read,
+    counted as ``sync`` and timed as span ``sync.<what>``."""
     if not RECORDING:
-        return x.item()
+        return x.tolist()
     with synced(what):
-        return x.item()
+        return x.tolist()
 
 
 @contextlib.contextmanager

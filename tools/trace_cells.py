@@ -139,7 +139,7 @@ def idle_labels(prof) -> dict:
                if n not in ("", "bench.sync")}
     staged = sum(t for n, t in in_call.items()
                  if n.startswith(("nsp.numeric.", "nsp.sync.", "nsp.spmv.",
-                                  "nsp.plan_device.")))
+                                  "nsp.plan_device.", "nsp.spgemm.hash.")))
     total = sum(in_call.values())
     return {
         "window_s": hi - lo,
