@@ -1,0 +1,18 @@
+"""Host ms a call spent in the program's host reads: the recorder's
+``sync.*`` spans over the calls that the entry recorded, each inside the
+span ``bench.call``.  An entry records them in set-up, before warm-up and
+outside the timed window (``entries/rap.py``: a reset, then one call
+under ``profiling.recording()``), so the value is of those calls alone.
+None where the recorder holds no such call."""
+
+
+def read(run):
+    from nsparse_tpu_torch.utils import profiling
+
+    snap = profiling.snapshot()
+    calls = snap["spans"].get("bench.call", {}).get("count", 0)
+    if not calls:
+        return None
+    wait = sum(s["total_s"] for name, s in snap["spans"].items()
+               if name.startswith("sync."))
+    return 1e3 * wait / calls

@@ -47,7 +47,11 @@ Phases (any failure exits non-zero before the final line):
                                 row covering all N columns, every row in
                                 the tail route (dense in three passes;
                                 device-memory tables), exact cancellation
-                                kept in C, and M * N = 2^32;
+                                kept in C, M * N = 2^32, and HPCG's
+                                Galerkin product at 64^3 in f64 (``rap``
+                                and its two products: rectangular, the
+                                first's C the second's B; routes pwarp
+                                and warp, then pwarp; four host reads);
   3c. the plan cache: the five host plans above (window v2 and v1,
      global and sort on R-MAT-14, global unaligned on R-MAT-16) saved
      (file MB, host s) and loaded (host s, index tables checked), run on
@@ -73,6 +77,11 @@ Phases (any failure exits non-zero before the final line):
                   K8 (they must stay full float32);
        f64        DIA and x-shuffle ELL again in float64;
        tuner      ``autotune_spmv`` in model mode on the stencil;
+       HPCG       the ``hpcg-256.spmv-dia`` cell's shape: HPCG's 27
+                  diagonals on a 256^3 grid in float64, built on the
+                  card, one K7 launch held to its plain version within
+                  32 eps of |A||x| (27 terms summed in two orders), timed
+                  beside its bound;
      the x-shuffle ELL SpMV under torch.profiler;
   5. block SpGEMM, C = A @ A through dense 256 x 256 tiles (K9):
        FEM f32    the FEM matrix above: ``choose_spgemm_path`` must answer
@@ -176,6 +185,7 @@ import contextlib
 import ctypes
 import dataclasses
 import glob
+import itertools
 import json
 import os
 import re
@@ -204,6 +214,8 @@ TRIALS = 20
 # and the width of its full-row case
 HASH_G500 = dict(scale=15, edge_factor=16, seed=1)
 HASH_WIDE = 40_000  # the dense route in two passes (f32), three (f64)
+GALERKIN_GRID = 64  # HPCG's Galerkin product, on a 64^3 grid
+HPCG_DIA_GRID = 256  # K7 at the hpcg-256.spmv-dia cell's grid
 RMAT_SCALE, RMAT_EF, RMAT_SEED = 20, 16, 2
 STENCIL = 2048
 FEM = dict(n_nodes=4096, dof=16, neighbors=6, bandwidth=24, seed=3)
@@ -1635,6 +1647,85 @@ def hash_phase(s: Smoke) -> None:
               flush=True)
         if not ok:
             fail(f"hash-wide-key {tag}: C does not match scipy")
+    galerkin_case(s, rng)
+
+
+def hpcg_level(nt, n: int, rng):
+    """(R, A, P) of one level of HPCG's multigrid set-up on an n³ grid
+    (n even), float64, built with scipy: A the 27-point stencil (x
+    fastest), diagonal 26, each off-diagonal pair -f with f uniform in
+    [0.5, 1.5); P trilinear interpolation from the points (2i, 2j, 2k)
+    (1-D weights 1 and 1/2, the last odd point of a line taking its one
+    coarse neighbour at 1/2); R = P^T."""
+    import scipy.sparse as sp
+
+    def kron3(m):
+        k = sp.kron(sp.kron(m, m), m).tocsr()
+        k.eliminate_zeros()  # kron may store whole blocks, zeros too
+        return k
+
+    pattern = kron3(sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(n, n)))
+    up = sp.triu(pattern, 1).tocsr()
+    up.data = rng.uniform(0.5, 1.5, up.nnz)
+    a = (26.0 * sp.identity(n ** 3) - up - up.T).tocsr()
+    i = np.arange(n)
+    p1 = sp.csr_matrix((np.where(i % 2, 0.5, 1.0), (i, i // 2)),
+                       shape=(n, n // 2)) + sp.csr_matrix(
+        (np.full(n // 2 - 1, 0.5), (i[1:-1:2], i[1:-1:2] // 2 + 1)),
+        shape=(n, n // 2))
+    p = kron3(p1.tocsr())
+    return tuple(nt.CSR.from_scipy(m.tocsr()) for m in (p.T, a, p))
+
+
+def galerkin_case(s: Smoke, rng) -> None:
+    """HPCG's Galerkin product R·(A·P) at ``GALERKIN_GRID``³ in f64, the
+    hash path on rectangular operands with the first product's C as the
+    second's B: A·P against scipy (M·N is past the ESC path's key), R·(A·P)
+    against the ESC path, each product's rows by route the host's binning
+    (``check_routes``: symbolic pwarp and warp, numeric pwarp), then
+    ``nt.rap`` against scipy's R @ A @ P within 1e-8 of |R||A||P|, equal
+    in structure to the two products, four host reads and ``rap.ap_nnz``
+    from the recorder."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.utils import profiling
+
+    n = GALERKIN_GRID
+    what = f"hash-galerkin {n}^3 f64"
+    r, a, p = host_timed(f"{what}: build R, A, P",
+                         lambda: hpcg_level(nt, n, rng))
+    r_d, a_d, p_d = (m.to(s.dev) for m in (r, a, p))
+    ap_d, counters, _ = hash_against_esc(s, f"{what} A·P", a, a_d, p, p_d,
+                                         scipy_check=False)
+    check_chain(s, ap_d, (a, p), f"{what} A·P")
+    used = [check_routes(counters, f"{what} A·P", a, p, ap_d)]
+    ap = ap_d.to("cpu")
+    c_d, counters, _ = hash_against_esc(s, f"{what} R·(A·P)", r, r_d, ap,
+                                        ap_d, scipy_check=False)
+    used.append(check_routes(counters, f"{what} R·(A·P)", r, ap, c_d))
+    for u in used:
+        if not set(u["symbolic"]) <= {"pwarp", "warp"} or \
+                u["numeric"] != ["pwarp"]:
+            fail(f"{what}: routes with rows {u}, expected symbolic pwarp "
+                 "and warp, numeric pwarp")
+    profiling.reset()
+    with profiling.recording():
+        c = nt.rap(r_d, a_d, p_d)
+        torch.cuda.synchronize()
+    snap = profiling.snapshot()
+    profiling.reset()
+    check_chain(s, c, (r, a, p), f"{what} rap")
+    same = torch.equal(c.rpt, c_d.rpt) and torch.equal(c.col, c_d.col)
+    reads = snap["counters"].get("sync", 0)
+    ap_nnz = snap["counters"].get("rap.ap_nnz")
+    ms = s.time_cuda(lambda: nt.rap(r_d, a_d, p_d), trials=5)
+    flops = 2 * (nt.spgemm_flops(a, p) + nt.spgemm_flops(r, ap))
+    print(f"{what} rap [{s.card}]: nnz(A·P) {ap.nnz}, nnz(C) {c.nnz}; "
+          f"structure equal to the two products' {same}; host reads "
+          f"{reads}; rap.ap_nnz {ap_nnz}; {ms:.4f} ms by CUDA events "
+          f"({flops / ms / 1e6:.2f} GFLOP/s)", flush=True)
+    if not same or reads != 4 or ap_nnz != ap.nnz:
+        fail(f"{what}: rap's C, host reads or counter differ from its "
+             "two products'")
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1937,6 +2028,7 @@ def spmv_phases(s: Smoke) -> None:
     if not ok or plan.format != "dia":
         fail(f"tuner: format {plan.format}, {nf} mismatches")
     del a, a64, dia, fmt
+    hpcg_dia_case(s)
 
     # FEM: dense 16-dof blocks as (128, 128) BSR tiles
     a = host_timed("generate FEM", lambda: nt.fem_block_csr(
@@ -1949,6 +2041,64 @@ def spmv_phases(s: Smoke) -> None:
     s.spmv_path("fem-bsr128", a, bsr_d, x_for(a.shape[1], np.float32),
                 ["spmv_bsr"], np.float32)
     precision_check(s, bsr_d)
+
+
+def hpcg_diagonals(torch, n: int, dev):
+    """(offsets, vals) of HPCG's 27-point operator on an n³ grid (x
+    fastest) as the port's DIA holds it, in float64: 26 on the diagonal,
+    -1 for each neighbour on the grid, 0 off it; rows padded to 128."""
+    m = n ** 3
+    vals = torch.zeros(27, -(-m // 128) * 128, dtype=torch.float64,
+                       device=dev)
+    i = torch.arange(n, device=dev)
+    offsets = []
+    for d, (dz, dy, dx) in enumerate(
+            itertools.product((-1, 0, 1), repeat=3)):
+        offsets.append(dx + n * dy + n * n * dz)
+        oz, oy, ox = (((i + t) >= 0) & ((i + t) < n) for t in (dz, dy, dx))
+        on = (oz[:, None, None] & oy[None, :, None] & ox[None, None, :])
+        vals[d, :m] = on.reshape(-1) * (26.0 if d == 13 else -1.0)
+    return tuple(offsets), vals
+
+
+def hpcg_dia_case(s: Smoke) -> None:
+    """K7 at the ``hpcg-256.spmv-dia`` cell's shape: ``nt.spmv`` on a DIA
+    of HPCG's 27 diagonals at ``HPCG_DIA_GRID``³ in f64, one launch, held
+    to ``spmv_dia_plain`` on the same x within 32 eps of |A||x| (each sum
+    of 27 terms within about 27 u of it, in either order), then timed
+    beside the bound of the stored diagonals, x and y."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops.kernels.dia import spmv_dia_plain
+
+    n = HPCG_DIA_GRID
+    m = n ** 3
+    what = f"hpcg-dia {n}^3 f64"
+    offsets, vals = host_timed(f"{what}: diagonals on the card",
+                               lambda: hpcg_diagonals(torch, n, s.dev))
+    dia = nt.DIA(vals=vals, offsets=offsets, shape=(m, m),
+                 nnz=int((vals != 0).sum()),
+                 off_t=torch.tensor(offsets, dtype=torch.int32,
+                                    device=s.dev))
+    x = torch.randn(m, dtype=torch.float64, device=s.dev,
+                    generator=torch.Generator(s.dev).manual_seed(0))
+    y = s.counted(lambda: nt.spmv(dia, x), ["spmv_dia"], what,
+                  exact={"spmv_dia": 1})
+    want = spmv_dia_plain(vals, offsets, x, m)
+    scale = spmv_dia_plain(vals.abs(), offsets, x.abs(), m)
+    eps = torch.finfo(torch.float64).eps
+    gap = float(((y - want).abs() / scale.clamp(min=1e-300)).max()) / eps
+    ok = gap <= 32 and bool(torch.isfinite(y).all())
+    del want, scale
+    ms = s.time_cuda(lambda: nt.spmv(dia, x), trials=TRIALS)
+    nbytes = (vals.numel() + 2 * m) * 8
+    print(f"{what} [{s.name}, {s.card}]: nnz {dia.nnz}, K7 vs plain "
+          f"{gap:.2f} eps of |A||x| (limit 32): {'pass' if ok else 'FAIL'}; "
+          f"{ms:.4f} ms by CUDA events, {2 * dia.nnz / ms / 1e6:.2f} "
+          f"GFLOP/s, bound {nbytes / s.bw * 1e3:.4f} ms ({nbytes} B)",
+          flush=True)
+    if not ok:
+        fail(f"{what}: K7 differs from its plain version by {gap:.2f} eps "
+             "of |A||x|")
 
 
 def precision_check(s: Smoke, bsr_d) -> None:

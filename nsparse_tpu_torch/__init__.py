@@ -12,7 +12,8 @@ semirings, the ``spmv`` dispatch and its tuner), Matrix Market reading
 and writing, the SuiteSparse fetcher, row binning, checking, timing and
 profiling utilities, the CLI, and the distributed layer
 (``nsparse_tpu_torch.parallel``: row-sharded SpMV and SpGEMM, halo
-exchange and R·A·P over a mesh of devices).  Their kernels are hand-written CUDA
+exchange and R·A·P over a mesh of devices; ``rap`` is R·A·P on one
+device).  Their kernels are hand-written CUDA
 for Hopper, thirteen sources in ``csrc/`` (K1-K12, with K2's piece and
 flat modes and K4's K-fold mode, each beside its plain PyTorch version;
 and the hash SpGEMM, whose plain counterpart is the device planner's
@@ -33,6 +34,7 @@ from nsparse_tpu_torch.io.generate import (
 from nsparse_tpu_torch.io.matrix_market import read_mtx, write_mtx
 from nsparse_tpu_torch.ops.spgemm import (
     SpgemmPlan,
+    rap,
     spgemm,
     spgemm_flops,
     spgemm_numeric,
@@ -89,6 +91,7 @@ __all__ = [
     "fem_block_csr",
     "plan_spgemm_bsr",
     "random_csr",
+    "rap",
     "read_mtx",
     "rmat_csr",
     "spgemm",

@@ -13,6 +13,8 @@ reached through ``spgemm(..., method=)``).
 - numeric: ``spgemm_numeric`` runs the plan's layout on the device the
   plan and the values live on; new values with the same sparsity re-run
   it on the same plan.
+- ``rap`` chains two one-shot products into the Galerkin product
+  R·(A·P) on one device.
 
 The sort layout's scan, compaction and rank sort are XLA code in the JAX
 package; here they are plain torch: a scatter through the rank
@@ -32,7 +34,7 @@ import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
 from nsparse_tpu_torch.utils.device import int32_tensor, to_device
-from nsparse_tpu_torch.utils.profiling import host_read, span, synced
+from nsparse_tpu_torch.utils.profiling import count, host_read, span, synced
 
 LANES = 128
 CHUNK = 512  # slab chunk width: entries with more products are split
@@ -880,3 +882,37 @@ def spgemm(a: CSR, b: CSR, plan: SpgemmPlan | None = None,
             plan = (spgemm_plan(a, b).to(a.val.device) if planner == "host"
                     else spgemm_plan_device(a, b))
         return spgemm_numeric(plan, a, b)
+
+
+def rap(r: CSR, a: CSR, p: CSR) -> CSR:
+    """The Galerkin product R·A·P = R @ (A @ P) on one device, as an
+    algebraic multigrid set-up forms each coarse operator.
+
+    R is k×m, A m×n, P n×l, on one device, with values of one dtype,
+    float32 or float64.  Both products are ``spgemm`` without a plan: on
+    CUDA values the hash path (four host reads in all, its own), on the
+    CPU the device planner.  The intermediate A·P stays on the device
+    and is dropped once the second product is enqueued.  As with
+    ``spgemm`` on a card, the sums follow the order of the card's
+    atomics, so the values are not bitwise repeatable from run to run
+    (the structure is).  Records the spans ``rap``, ``rap.ap`` and
+    ``rap.rap`` and the counter ``rap.ap_nnz`` (nnz(A·P), which the
+    first product has already read)."""
+    with span("rap"):
+        if r.shape[1] != a.shape[0] or a.shape[1] != p.shape[0]:
+            raise ValueError(f"shape mismatch {r.shape} @ {a.shape} @ "
+                             f"{p.shape}")
+        dtypes = {r.val.dtype, a.val.dtype, p.val.dtype}
+        if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.float64}:
+            raise TypeError(f"values must share one dtype, float32 or "
+                            f"float64; got {sorted(map(str, dtypes))}")
+        devs = {t.device for m in (r, a, p) for t in (m.rpt, m.col, m.val)}
+        if len(devs) != 1:
+            raise ValueError(f"operands on different devices: {devs}")
+        with span("rap.ap"):
+            ap = spgemm(a, p)
+        count("rap.ap_nnz", ap.nnz)
+        with span("rap.rap"):
+            c = spgemm(r, ap)
+        del ap
+        return c
