@@ -295,6 +295,9 @@ KERNELS = {
                            "nsparse_tpu/ops/kernels/piecewise.py:492"),
     "runcopy_kfold": ("cuda", "nsparse_tpu_torch/csrc/runcopy.cu",
                       "nsparse_tpu/ops/kernels/runcopy.py:1035"),
+    # no TPU kernel: slab_class_reduce's XLA adds around planned_shuffle
+    "fallback_sum": ("cuda", "nsparse_tpu_torch/csrc/fallback_sum.cu",
+                     "nsparse_tpu/ops/spgemm.py:792"),
 }
 # how each kernel is held against its plain version
 TOLERANCE = {
@@ -307,13 +310,13 @@ SPGEMM_FIELDS = {"gather": "gather", "expand": "expand",
                  "bank": "build_bank", "fused_v2": "fused_class_v2",
                  "pieces": "expand_pieces", "tiles8": "gather_tiles8",
                  "pieces_flat": "expand_pieces_flat",
-                 "scatter": "scatter_tiles"}
+                 "scatter": "scatter_tiles", "fallback": "fallback_sum"}
 # the kernels each form of the window numeric phase must launch on
 # R-MAT-14 (its fallback pool is not empty); spgemm_phase checks their
 # exact counts against the plan
 SPGEMM_V2 = ["build_bank", "gather", "fused_class_v2", "expand_pieces",
-             "gather_tiles8", "runcopy"]
-SPGEMM_V1 = ["gather", "expand", "fused_class", "runcopy"]
+             "gather_tiles8", "fallback_sum", "runcopy"]
+SPGEMM_V1 = ["expand", "fused_class", "fallback_sum", "runcopy"]
 
 
 def host_timed(what, fn):
@@ -401,8 +404,8 @@ class Smoke:
     def __init__(self, torch, card: str):
         import nsparse_tpu_torch as nt
         from nsparse_tpu_torch.ops.kernels import (
-            bsr_blocks, cuda_lib, dia, flat_gather, gather_tiles, piecewise,
-            runcopy, shuffle, spmv_bsr, window_fused)
+            bsr_blocks, cuda_lib, dia, fallback, flat_gather, gather_tiles,
+            piecewise, runcopy, shuffle, spmv_bsr, window_fused)
         from nsparse_tpu_torch.utils.roofline import chip_specs
         from nsparse_tpu_torch.utils.timing import time_cuda
 
@@ -426,6 +429,7 @@ class Smoke:
             "fused_class_v2": window_fused.fused_class_expand,
             "expand_pieces_flat": piecewise.expand_pieces_flat,
             "runcopy_kfold": runcopy.runcopy_kfold,
+            "fallback_sum": fallback.fallback_sum,
         }
         self.plain = {
             "gather": shuffle.gather_plain,
@@ -445,6 +449,7 @@ class Smoke:
             "fused_class_v2": window_fused.fused_class_expand_plain,
             "expand_pieces_flat": piecewise.expand_pieces_flat_plain,
             "runcopy_kfold": runcopy.runcopy_kfold_plain,
+            "fallback_sum": fallback.fallback_sum_plain,
         }
         self.piecewise, self.window_fused = piecewise, window_fused
         # where the SpMV and block SpGEMM paths look each wrapper up
@@ -681,6 +686,8 @@ class Smoke:
                 + (reads + out.numel()) * vb
         elif k in ("fused_class", "fused_class_v2"):
             nbytes = k3_bytes(self, k, args, out)
+        elif k == "fallback_sum":
+            nbytes = fallback_bytes(args[0], out.element_size())
         elif k == "runcopy_kfold":
             # the run descriptors, the K sub-runs of every run (strides of
             # at least the run's length: no value read twice), the output
@@ -947,6 +954,126 @@ def k3_bytes(s, k, args, out, old_rule=False) -> int:
     return nbytes + plan.n_win * 8 + pieces * (16 + vb)
 
 
+def fallback_bytes(plan, vb: int) -> int:
+    """The bytes one K13 call must move: each product once with its
+    4-byte source, each segment slot written once with its 4-byte slot
+    (the slab's pads and chunk members and the warp table are the
+    design's, not the work's)."""
+    return (plan.n_products + plan.n_out) * (4 + vb)
+
+
+def fallback_case(s: Smoke, label: str, a, plan) -> None:
+    """K13 on one window plan's fallback pool: the segment against its
+    plain twin (every slot, bit for bit) and against the parent's stage
+    (K1 into the slabs, ``slab_class_reduce``'s adds, pad, K1, the copy
+    into the merge buffer) at every entry's slot, bit for bit; the gaps
+    +0.0; C through both stages bit for bit; one launch; each timed by
+    CUDA events back to back and queued behind a device sleep, beside the
+    bound (``fallback_bytes`` at the card's bandwidth)."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops import spgemm_window as sw
+    from nsparse_tpu_torch.ops.kernels import piecewise, shuffle
+    from nsparse_tpu_torch.ops.spgemm import slab_class_reduce
+
+    plan_d, a_d = plan.to(s.dev), a.to(s.dev)
+    w, wd = plan.win, plan_d.win
+    if wd.fused_expand:
+        bank, apv = sw.v2_delivery(wd, a_d.val, a_d.val)
+        prod = piecewise.expand_from_bank(wd.pw, a_d.val, bank)
+    else:
+        prod = piecewise.piecewise_expand(wd.expand, a_d.val, a_d.val)
+    # the parent's stage, from the host plan's slab tables
+    shuf, perm = w.fb_shuffle.idx.to(s.dev), w.fb_perm.idx.to(s.dev)
+    lvl = tuple(i.to(s.dev) for i in w.fb_lvl_idx)
+
+    def slab_stage(res):
+        r = slab_class_reduce(
+            shuffle.gather(prod[wd.fb_off : wd.fb_off + wd.fb_len], shuf),
+            w.fb_levels, lvl)
+        r = torch.nn.functional.pad(r, (0, max(wd.fb.n_out - r.numel(), 0)))
+        res[wd.n_compact :].copy_(shuffle.gather(r, perm))
+
+    res_old, res_new, res_twin = (sw.merge_buffer(wd, a_d.val)
+                                  for _ in range(3))
+    slab_stage(res_old)
+    s.counted(lambda: sw.fallback_segment(wd, prod, res_new),
+              ["fallback_sum"], f"fallback {label}",
+              exact={"fallback_sum": 1, "gather": 0})
+    sw.fallback_segment(wd, prod, res_twin, sw.PLAIN_OPS)
+    bits = torch.int32 if a.val.dtype == torch.float32 else torch.int64
+    seg = [r[wd.n_compact :].view(bits) for r in (res_old, res_new, res_twin)]
+    m = wd.merge
+    tail = m.src_off.long() >= wd.n_compact
+    at = torch.zeros(wd.fb.n_out, dtype=torch.bool, device=s.dev)
+    for s0, n in zip((m.src_off.long()[tail] - wd.n_compact).tolist(),
+                     m.len.long()[tail].tolist()):
+        at[s0 : s0 + n] = True
+    twin_ok = torch.equal(seg[1], seg[2])
+    old_ok = torch.equal(seg[1][at], seg[0][at])
+    gaps_ok = bool((seg[1][~at] == 0).all())
+    # C through both stages: the class arenas into the parent's buffer too
+    if wd.fused_expand:
+        sw.v2_classes(wd, bank, apv, res_old)
+    else:
+        for (fp, out), (base, slots, _, _) in zip(
+                sw._class_slices(wd, res_old), wd.class_geom):
+            sw.KERNEL_OPS.fused(fp, prod[base : base + slots], out=out)
+    c_old = sw.merge_segments(plan_d, res_old).view(bits)
+    c_ok = torch.equal(nt.spgemm_numeric(plan_d, a_d, a_d).val.view(bits),
+                       c_old)
+    fb = wd.fb
+    bound = fallback_bytes(fb, a.val.element_size()) / s.bw * 1e3
+    ms = {
+        "K13": s.time_cuda(lambda: sw.fallback_segment(wd, prod, res_new),
+                           trials=TRIALS),
+        "slab stage": s.time_cuda(lambda: slab_stage(res_old),
+                                  trials=TRIALS),
+        "plain twin": s.time_cuda(
+            lambda: sw.fallback_segment(wd, prod, res_twin, sw.PLAIN_OPS),
+            trials=TRIALS),
+    }
+    queued = {
+        "K13": queued_device_ms(
+            torch, lambda: sw.fallback_segment(wd, prod, res_new)),
+        "slab stage": queued_device_ms(torch, lambda: slab_stage(res_old)),
+    }
+    dev_ms, _ = profiled_device_ms(
+        torch, lambda: sw.fallback_segment(wd, prod, res_new),
+        "fallback_kernel")
+    print(f"K13 on {label} [{s.name}, {s.card}]: {a.val.dtype}, "
+          f"{'v2' if wd.fused_expand else 'v1'}, {int(at.sum())} entries in "
+          f"a {fb.n_out}-slot segment, {fb.n_products} products in "
+          f"{fb.src.numel()} level-0 slots (levels "
+          f"{[len(lv) for lv in w.fb_levels]}), {fb.warps.numel() // 2} "
+          f"warps, (width, members) {[c[:3:2] for c in fb.classes]}; bit "
+          f"for bit: "
+          f"plain twin {twin_ok}, slab stage at the entries {old_ok}, gaps "
+          f"+0.0 {gaps_ok}, C {c_ok}; "
+          + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + "  queued " + "  ".join(f"{k} {fmt_ms(v)} ms"
+                                    for k, v in queued.items())
+          + f"  profiler {fmt_ms(dev_ms)} ms  bound {bound:.4f} ms "
+          f"({fallback_bytes(fb, a.val.element_size())} B)", flush=True)
+    if not (twin_ok and old_ok and gaps_ok and c_ok):
+        fail(f"K13 on {label}: the segment or C differs")
+
+
+def fallback_phase(s: Smoke) -> None:
+    """K13 on Graph500 scale 13 in float32 (the re-run cell's shape, v1)
+    and on R-MAT-14 in v1 and v2, float32 and float64 (the window phase's
+    host plans: run ``spgemm_phase`` first)."""
+    nt = s.nt
+    a13 = g500_graph(nt, 13, 16, SEED)
+    plan13 = host_timed("Graph500 scale-13 plan",
+                        lambda: nt.spgemm_plan(a13, a13))
+    fallback_case(s, "Graph500-13", a13, plan13)
+    for name in ("window-v1", "window-v2"):
+        a, plan, _ = s.host_plans[name]
+        for dt in (np.float32, np.float64):
+            fallback_case(s, f"R-MAT-{SCALE} {name} {np.dtype(dt).name}",
+                          with_dtype_values(a, dt), plan)
+
+
 def cusparse_spgemm_ms(s: Smoke, a, what: str):
     """Device ms of one cuSPARSE CSR SpGEMM C = A @ A
     (``torch.sparse_csr_tensor @ torch.sparse_csr_tensor``, the
@@ -1020,10 +1147,11 @@ def spgemm_phase(s: Smoke) -> None:
         return nt.spgemm_numeric(plan_d, a_d, a_d)
 
     c = s.counted(v2_run, SPGEMM_V2, "spgemm")
-    # K1: the class A values, the fallback pieces' A values, the fallback
-    # pool's two shuffles; K2 piece mode once over every piece class
-    want = {"build_bank": 1, "gather": 4, "fused_class_v2": len(w.fused),
-            "expand_pieces": 1, "gather_tiles8": 1, "runcopy": 1}
+    # K1: the class A values, the fallback pieces' A values; K2 piece mode
+    # once over every piece class; K13 once for the fallback segment
+    want = {"build_bank": 1, "gather": 2, "fused_class_v2": len(w.fused),
+            "expand_pieces": 1, "gather_tiles8": 1, "fallback_sum": 1,
+            "runcopy": 1}
     if s.path_launches["spgemm"] != want:
         fail(f"v2 launches {s.path_launches['spgemm']}, expected {want}")
     check_c(s, c, a, "C (v2)")
@@ -1055,8 +1183,8 @@ def spgemm_phase(s: Smoke) -> None:
         return nt.spgemm_numeric(plan1_d, a_d, a_d)
 
     c1 = s.counted(v1_run, SPGEMM_V1, "spgemm-v1")
-    want = {"gather": 2, "expand": 1, "fused_class": len(plan1.win.fused),
-            "runcopy": 1}
+    want = {"expand": 1, "fused_class": len(plan1.win.fused),
+            "fallback_sum": 1, "runcopy": 1}
     if s.path_launches["spgemm-v1"] != want:
         fail(f"v1 launches {s.path_launches['spgemm-v1']}, expected {want}")
     check_c(s, c1, a, "C (v1)")
@@ -1103,15 +1231,15 @@ def spgemm_phase(s: Smoke) -> None:
     bank, apv = sw.v2_delivery(w_d, a_d.val, a_d.val)
     res = sw.merge_buffer(w_d, a_d.val)
     sw.v2_classes(w_d, bank, apv, res)
-    fb_seg = sw.v2_fallback(w_d, a_d.val, bank)
+    sw.v2_fallback(w_d, a_d.val, bank, res)
     stage_ms = {
         "delivery": s.time_cuda(
             lambda: sw.v2_delivery(w_d, a_d.val, a_d.val), trials=TRIALS),
         "classes": s.time_cuda(lambda: sw.v2_classes(w_d, bank, apv, res),
                                trials=TRIALS),
-        "fallback": s.time_cuda(lambda: sw.v2_fallback(w_d, a_d.val, bank),
-                                trials=TRIALS),
-        "merge": s.time_cuda(lambda: sw.merge_segments(plan_d, res, fb_seg),
+        "fallback": s.time_cuda(
+            lambda: sw.v2_fallback(w_d, a_d.val, bank, res), trials=TRIALS),
+        "merge": s.time_cuda(lambda: sw.merge_segments(plan_d, res),
                              trials=TRIALS),
     }
     print(f"v2 stages [{s.name}, {s.card}]: "
@@ -2732,10 +2860,9 @@ def k1_phase(s: Smoke) -> None:
     ``idx`` view and an ``out`` view one element off alignment) held
     against ``gather_plain`` with ``torch.equal`` in f32 and f64, indices
     negative and past the end of x among them.  Then, where the paths have
-    run, K1 on R-MAT-20's ELL x-shuffle (its largest call) and on the v2
-    path's fallback shuffle (R-MAT-14), by CUDA events, by the profiler's
-    device time and queued behind a device sleep, beside their bounds and
-    ``x[idx]``."""
+    run, K1 on R-MAT-20's ELL x-shuffle (its largest call), by CUDA
+    events, by the profiler's device time and queued behind a device
+    sleep, beside its bound and ``x[idx]``."""
     torch, cl = s.torch, s.cuda_lib
     from nsparse_tpu_torch.ops.kernels import shuffle
 
@@ -2772,10 +2899,6 @@ def k1_phase(s: Smoke) -> None:
     if ell:
         picks.append((f"R-MAT-{RMAT_SCALE} ELL x-shuffle (its largest call)",
                       max(ell, key=lambda a: a[1].numel())))
-    fb = [a for p, a in s.calls["gather"]
-          if p == "spgemm" and a[0].numel() == FB_PRODUCTS]
-    if fb:
-        picks.append((f"R-MAT-{SCALE} v2 fallback shuffle", fb[0]))
     for label, args in picks:
         measure_calls(s, "gather", f"K1 on {label}, {args[1].numel()} outputs "
                       f"from {args[0].numel()} values", [args], "gather",
@@ -3013,8 +3136,8 @@ def plan_launches(plan) -> dict:
     global slab layout's (``global_launches``); the window layout's v2
     form (K11, K1 for the class A values, K3 v2 per class, K4) or v1 form
     (K2 run form, K3 per class, K4), each with its fallback pool (v2: the
-    piece route's K1, K2 and K12; both: the pool's two K1 shuffles); K1
-    twice and K6 where a piece plan has run-dense subtiles."""
+    piece route's K1, K2 and K12; both: K13 for the segment); K1 twice
+    and K6 where a piece plan has run-dense subtiles."""
     want = {}
 
     def add(k, n=1):
@@ -3043,13 +3166,13 @@ def plan_launches(plan) -> dict:
             add("build_bank")
             add("gather")
             add("fused_class_v2", len(w.fused))
-            if w.fb_shuffle is not None:
+            if w.fb is not None:
                 pieces(w.pw)
         else:
             add("expand")
             add("fused_class", len(w.fused))
-        if w.fb_shuffle is not None:
-            add("gather", 2)
+        if w.fb is not None:
+            add("fallback_sum")
     return want
 
 
@@ -3520,7 +3643,8 @@ def main() -> None:
     print(f"kernels built: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(s.cuda_lib.NVCC_FLAGS)})", flush=True)
 
-    for phase in (spgemm_phase, esc_layout_phases, hash_phase,
+    for phase in (spgemm_phase, fallback_phase, esc_layout_phases,
+                  hash_phase,
                   plan_cache_phase,
                   cli_phase, kfold_phase, spmv_phases,
                   bsr_spgemm_phases, windowed_gather_phase, tile_copy_phase,

@@ -7,8 +7,9 @@ every piece class), K3
 ``window_fused.fused_class_apply`` (v1; v2 ``fused_class_expand``), K4
 ``runcopy.runcopy`` (fixed mode; ``runcopy_kfold`` stands alone, as its
 TPU counterpart does), K11 ``piecewise.build_bank`` (the pre-rolled bank,
-or the flat table), K12 ``gather_tiles.gather_tiles8``; the sort layout
-runs ``flat_gather``.  SpMV: K5 ``gather_tiles.gather_subset``, K6
+or the flat table), K12 ``gather_tiles.gather_tiles8``, K13
+``fallback.fallback_sum`` (the window numeric's fallback segment, in one
+launch); the sort layout runs ``flat_gather``.  SpMV: K5 ``gather_tiles.gather_subset``, K6
 ``gather_tiles.scatter_tiles`` (both through ``flat_gather``), K7
 ``dia.spmv_dia``, K8 ``spmv_bsr.spmv_bsr``.  Block SpGEMM: K9
 ``bsr_blocks.spgemm_bsr_blocks`` (with K5, K1 and K6 on a value re-run's

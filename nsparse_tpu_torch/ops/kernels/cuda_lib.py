@@ -26,7 +26,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu",
            "gather_subset.cu", "scatter_tiles.cu", "spmv_dia.cu",
            "spmv_bsr.cu", "spgemm_bsr.cu", "windowed_gather.cu",
-           "build_bank.cu", "gather_tiles8.cu", "spgemm_hash.cu")
+           "build_bank.cu", "gather_tiles8.cu", "spgemm_hash.cu",
+           "fallback_sum.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "nsp_build_bank": [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P],
     "nsp_gather_tiles8": [_P, _I64, _P, _I64, _P, _P],
     "nsp_runcopy_kfold": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P],
+    "nsp_fallback_sum": [_P, _P, _P, _P, _P, _I64, _I64_ARRAY, _I32, _P,
+                         _P],
     "nsp_hash_bin": [_P, _P, _P, _P, _I32, _I64, _I64, _I64_ARRAY, _I32,
                      _I32, _P, _P, _P, _P, _P],
     "nsp_hash_scatter": [_P, _I64, _P, _I32, _P, _P],

@@ -33,11 +33,11 @@ import numpy as np
 import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
+from nsparse_tpu_torch.ops.kernels.fallback import CHUNK  # slab chunk width
 from nsparse_tpu_torch.utils.device import int32_tensor, to_device
 from nsparse_tpu_torch.utils.profiling import count, host_read, span, synced
 
 LANES = 128
-CHUNK = 512  # slab chunk width: entries with more products are split
 LAYOUTS = (None, "window", "global")
 PLANNERS = ("auto", "device", "host")
 
@@ -623,12 +623,15 @@ def plan_from_numpy(arrays: dict, extras: dict, expand) -> SpgemmPlan:
     ``n_compact``.  ``extras`` is the dict the JAX ``spgemm_plan`` fills
     through ``extras_out`` (the merge runs, ``arena_len``, ``fb_seg``,
     ``c_cap``).  The JAX plan keeps its expansion as TPU piece tables, so
-    ``expand`` — the run descriptors — comes from the port's own planner.
+    ``expand`` — the run descriptors — comes from the port's own planner;
+    its live slots tell the fallback pool's products from its pads, and
+    the merge runs each fallback entry's segment slot, for K13's table.
     The JAX indices are class-global; they are converted to window-local
     ones here, with the same checks ``build_window_structure`` applies.
     The index form is the JAX package's v1 plan (its v2 plans carry routed
     masks instead of indices), so the converted plan is v1.
     """
+    from nsparse_tpu_torch.ops.kernels.fallback import fallback_from_slab
     from nsparse_tpu_torch.ops.kernels.runcopy import build_runcopy_plan
     from nsparse_tpu_torch.ops.kernels.shuffle import build_shuffle_plan
     from nsparse_tpu_torch.ops.kernels.window_fused import (
@@ -662,10 +665,25 @@ def plan_from_numpy(arrays: dict, extras: dict, expand) -> SpgemmPlan:
             _local(np.asarray(arrays["entry_idx"][ci], np.int64), w, "entry"),
         ))
     n_src = extras["arena_len"] + extras["fb_seg"]
-    fb_shuffle = fb_perm = None
+    fb = fb_shuffle = fb_perm = None
     if arrays["fb_shuffle"] is not None:
         fb_shuffle = build_shuffle_plan(arrays["fb_shuffle"], arrays["fb_len"])
         fb_perm = build_shuffle_plan(arrays["fb_perm"], extras["fb_seg"])
+        rs = expand.run_start.numpy().astype(np.int64)
+        pos = np.arange(int(arrays["fb_len"]), dtype=np.int64) \
+            + int(arrays["fb_off"])
+        run = np.searchsorted(rs, pos, side="right") - 1
+        real = pos - rs[run] < expand.live_len.numpy()[run]
+        m_src = np.asarray(extras["mrg_src"], np.int64)
+        m_len = np.asarray(extras["mrg_len"], np.int64)
+        tail = m_src >= extras["arena_len"]
+        n = m_len[tail]
+        seg = np.repeat(m_src[tail] - extras["arena_len"] - (np.cumsum(n) - n),
+                        n) + np.arange(int(n.sum()))
+        fb = fallback_from_slab(
+            fb_shuffle.idx.numpy(), tuple(arrays["fb_levels"]),
+            [np.asarray(i) for i in arrays["fb_lvl_idx"]],
+            fb_perm.idx.numpy()[seg], seg, real, extras["fb_seg"])
     win = WindowStructure(
         expand=expand,
         fused=tuple(fused),
@@ -673,6 +691,7 @@ def plan_from_numpy(arrays: dict, extras: dict, expand) -> SpgemmPlan:
             extras["mrg_src"], extras["mrg_len"], n_src,
             dst=extras["mrg_dst"], n_out=-(-extras["c_cap"] // 1024) * 1024,
         ),
+        fb=fb,
         fb_shuffle=fb_shuffle,
         fb_lvl_idx=tuple(
             int32_tensor(i)

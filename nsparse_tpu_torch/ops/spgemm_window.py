@@ -6,7 +6,8 @@ product count into fold levels 0..3 (an entry at level k owns the strided
 footprint ``{sigma + t * (W >> k)}``, and its total lands at
 ``F_k[sigma]`` after k halving folds), and entries with more than 8
 products recurse through radix-8 fold tiers.  Rows beyond every window's
-capability go to the fallback pool (slab classes, ``_build_slab_structure``).
+capability go to the fallback pool (slab classes, ``_build_slab_structure``,
+whose sums K13 computes in one launch from the slab's own slots).
 
 The host planner below is the JAX package's arithmetic, kept array for
 array so both packages build the same plan.  What it drops is what only a
@@ -17,12 +18,12 @@ pre-rolled B bank fits ``FUSED_BANK_BUDGET`` (the port's plans are always
 built for the card), else v1 (and always v1 at a budget of 0):
 
 - v1: K2 expansion of the whole arena -> per class K3 fused reduction
-  (reading through the tile permutation) -> fallback pool (K1, slab
-  reduce, K1) -> K4 merge run copy;
+  (reading through the tile permutation) -> fallback pool (K13 into the
+  merge buffer) -> K4 merge run copy;
 - v2: K11 builds the bank and one K1 gathers the per-piece A values
   (delivery) -> per class K3 expands its products in the kernel (classes)
   -> the fallback pool's products through the piece route (K1, K2 piece
-  mode, K12), then K1, slab reduce, K1 (fallback) -> K4 (merge).
+  mode, K12), then K13 (fallback) -> K4 (merge).
 """
 
 from __future__ import annotations
@@ -35,11 +36,16 @@ import torch
 
 from nsparse_tpu_torch.formats.csr import CSR
 from nsparse_tpu_torch.ops.kernels import (
+    fallback,
     gather_tiles,
     piecewise,
     runcopy,
     shuffle,
     window_fused,
+)
+from nsparse_tpu_torch.ops.kernels.fallback import (
+    FallbackPlan,
+    fallback_from_slab,
 )
 from nsparse_tpu_torch.ops.kernels.piecewise import (
     BIAS,
@@ -60,7 +66,7 @@ from nsparse_tpu_torch.ops.kernels.window_fused import (
 )
 from nsparse_tpu_torch.tune import kernelgen
 from nsparse_tpu_torch.utils.device import int32_tensor, to_device
-from nsparse_tpu_torch.utils.profiling import span
+from nsparse_tpu_torch.utils.profiling import count, span
 
 LANES = 128           # E-arena phase granule of the JAX plan (kept for parity)
 GAP_CHUNK = 1024      # zero runs are cut into chunks of at most this length
@@ -198,9 +204,15 @@ class WindowStructure:
         into fold slots included; in v2 with the class's piece tables.
       merge: the fixed-destination run copy assembling ``c_val`` from the
         class arenas and the fallback segment (K4).
-      fb_shuffle / fb_lvl_idx / fb_perm / fb_levels: fallback pool (None /
-        () when no row falls back): products -> slab classes (K1), class
-        reduction, slab totals -> entry-ordered segment (K1).
+      fb: the fallback pool's segment (K13): the slab's level-0 slots
+        (pads -1), each member's slot in the merge buffer's fallback
+        segment, the long entries' chunks and the warp table (None when
+        no row falls back).
+      fb_shuffle / fb_lvl_idx / fb_perm / fb_levels: the fallback pool's
+        slab layout, which ``fb`` is derived from (None / () when no row
+        falls back): products -> slab classes, class reduction, slab
+        totals -> entry-ordered segment.  Host tables (the JAX package's
+        arrays); no kernel reads them.
       pw: v2: the piece tables of the fallback pool's products (None in
         v1, or when no row falls back).
       b8_idx: v2: (b8_len,) int32 ``b.val`` index of each 8-aligned B
@@ -219,9 +231,12 @@ class WindowStructure:
     expand: ExpandPlan | None
     fused: Tuple[FusedClassPlan, ...]
     merge: RunCopyPlan
-    fb_shuffle: ShufflePlan | None
-    fb_lvl_idx: Tuple[torch.Tensor, ...]
-    fb_perm: ShufflePlan | None
+    fb: FallbackPlan | None
+    fb_shuffle: ShufflePlan | None = dataclasses.field(
+        metadata={"host": True})
+    fb_lvl_idx: Tuple[torch.Tensor, ...] = dataclasses.field(
+        metadata={"host": True})
+    fb_perm: ShufflePlan | None = dataclasses.field(metadata={"host": True})
     pw: PiecewisePlan | None
     b8_idx: torch.Tensor
     apv_idx: torch.Tensor
@@ -939,7 +954,7 @@ def build_window_structure(
 
     # --- fallback pool: whole rows beyond window capability -------------
     fb_entry_ids = np.flatnonzero(win_of_entry < 0)
-    fb_shuffle = fb_perm = None
+    fb = fb_shuffle = fb_perm = None
     fb_levels = ()
     fb_lvl_idx = ()
     fb_drow = fb_rcnt = fb_rows_seg = None
@@ -986,6 +1001,13 @@ def build_window_structure(
         )
         fb_rcnt = rcnt
         fb_rows_seg = rows_fb[rfirst]
+        # K13's tables: the slab's slots less the zeros it pads with (the
+        # runs' interior pads), each entry's slot in the segment
+        real = np.ones(fb_len, bool)
+        real[fb_interior] = False
+        fb = fallback_from_slab(
+            fb_shuffle.idx.numpy(), fb_levels, slab_fb["lvl_idx"],
+            fb_pos[ofb], pos_in_seg, real, fb_seg)
 
     # --- merge: per-window entry runs (wrap-aware) + fallback rows ------
     out_base_w = np.array(
@@ -1019,6 +1041,7 @@ def build_window_structure(
         expand=expand,
         fused=tuple(fused_plans),
         merge=merge,
+        fb=fb,
         fb_shuffle=fb_shuffle,
         fb_lvl_idx=fb_lvl_idx,
         fb_perm=fb_perm,
@@ -1044,8 +1067,8 @@ def apv_values(w: WindowStructure, a_val: torch.Tensor,
 
 class NumericOps(NamedTuple):
     """The kernels of the routed numeric phases, by role: window v1 runs
-    gather, expand, fused and runcopy; window v2 runs bank, gather,
-    fused_v2, pieces, tiles8 and runcopy; the global slab layout
+    expand, fused, fallback and runcopy; window v2 runs bank, gather,
+    fused_v2, pieces, tiles8, fallback and runcopy; the global slab layout
     (``spgemm.spgemm_numeric_slab``) runs bank, gather, pieces or
     pieces_flat, tiles8, and scatter where the plan has run-dense
     subtiles."""
@@ -1060,6 +1083,7 @@ class NumericOps(NamedTuple):
     tiles8: object
     pieces_flat: object
     scatter: object
+    fallback: object
 
 
 KERNEL_OPS = NumericOps(
@@ -1067,7 +1091,7 @@ KERNEL_OPS = NumericOps(
     window_fused.fused_class_apply, runcopy.runcopy, piecewise.build_bank,
     window_fused.fused_class_expand, piecewise.expand_pieces,
     gather_tiles.gather_tiles8, piecewise.expand_pieces_flat,
-    gather_tiles.scatter_tiles,
+    gather_tiles.scatter_tiles, fallback.fallback_sum,
 )
 PLAIN_OPS = NumericOps(
     shuffle.gather_plain, piecewise.expand_plain,
@@ -1075,6 +1099,7 @@ PLAIN_OPS = NumericOps(
     piecewise.build_bank_plain, window_fused.fused_class_expand_plain,
     piecewise.expand_pieces_plain, gather_tiles.gather_tiles8_plain,
     piecewise.expand_pieces_flat_plain, gather_tiles.scatter_tiles_plain,
+    fallback.fallback_sum_plain,
 )
 
 
@@ -1087,7 +1112,7 @@ def v2_delivery(w: WindowStructure, a_val: torch.Tensor, b_val: torch.Tensor,
 
 def merge_buffer(w: WindowStructure, like: torch.Tensor) -> torch.Tensor:
     """The merge source: the class arenas laid end to end (each class's
-    K3 writes its slice), then the fallback segment."""
+    K3 writes its slice), then the fallback segment (K13 writes it)."""
     return torch.empty(w.merge.n_src, dtype=like.dtype, device=like.device)
 
 
@@ -1108,39 +1133,32 @@ def v2_classes(w: WindowStructure, bank: torch.Tensor, apv: torch.Tensor,
 
 
 def fallback_segment(w: WindowStructure, prod: torch.Tensor,
+                     res: torch.Tensor,
                      ops: NumericOps = KERNEL_OPS) -> torch.Tensor:
-    """The fallback rows' entry-ordered merge segment from the fallback
-    pool's products ``prod`` (K1, slab reduce, K1)."""
-    from nsparse_tpu_torch.ops.spgemm import slab_class_reduce
-
-    fb_in = prod[w.fb_off : w.fb_off + w.fb_len]
-    fb_res = slab_class_reduce(
-        ops.gather(fb_in, w.fb_shuffle.idx), w.fb_levels, w.fb_lvl_idx
-    )
-    fb_seg = w.merge.n_src - w.n_compact
-    fb_res = torch.nn.functional.pad(
-        fb_res, (0, max(fb_seg - fb_res.numel(), 0))
-    )
-    return ops.gather(fb_res, w.fb_perm.idx)
+    """The fallback rows' entry-ordered merge segment, written into its
+    slice of the merge buffer ``res`` from the fallback pool's products
+    in ``prod`` (K13, one launch); returns the slice.  Counts the entries
+    (alignment gaps included) and products it sums, from the plan."""
+    count("numeric.window.fallback.entries", w.fb.n_out)
+    count("numeric.window.fallback.products", w.fb.n_products)
+    return ops.fallback(w.fb, prod[w.fb_off : w.fb_off + w.fb_len],
+                        out=res[w.n_compact :])
 
 
 def v2_fallback(w: WindowStructure, a_val: torch.Tensor, bank: torch.Tensor,
+                res: torch.Tensor,
                 ops: NumericOps = KERNEL_OPS) -> torch.Tensor:
     """v2 fallback: the pool's products through the piece route (K1, one
     K2 piece-mode launch, K12), then :func:`fallback_segment`."""
     prod = piecewise.expand_from_bank(w.pw, a_val, bank, ops.gather,
                                       ops.pieces, ops.tiles8, ops.pieces_flat,
                                       ops.scatter)
-    return fallback_segment(w, prod, ops)
+    return fallback_segment(w, prod, res, ops)
 
 
-def merge_segments(plan, res: torch.Tensor, fb_seg: torch.Tensor | None,
-                   ops: NumericOps = KERNEL_OPS):
-    """``c_val`` from the merge buffer ``res``, whose class arenas K3 has
-    written, and the fallback segment (copied in behind them; None when
-    no row falls back) (K4)."""
-    if fb_seg is not None:
-        res[plan.win.n_compact :].copy_(fb_seg)
+def merge_segments(plan, res: torch.Tensor, ops: NumericOps = KERNEL_OPS):
+    """``c_val`` from the merge buffer ``res``, whose class arenas K3 and
+    whose fallback segment K13 have written (K4)."""
     c_val = ops.runcopy(plan.win.merge, res)[: plan.c_capacity]
     c_val[plan.c_nnz :] = 0  # the capacity tail past nnz(C) holds zeros
     return c_val
@@ -1149,10 +1167,10 @@ def merge_segments(plan, res: torch.Tensor, fb_seg: torch.Tensor | None,
 def spgemm_numeric_window(plan, a: CSR, b: CSR,
                           ops: NumericOps = KERNEL_OPS) -> CSR:
     """Window numeric phase, in the plan's form.  v1: K2 expansion -> per
-    class K3 fused reduction -> fallback pool -> K4 merge.  v2: delivery
-    (K11, K1) -> classes (K3 v2) -> fallback (piece route, K1, slab
-    reduce, K1) -> merge (K4).  Each class's K3 writes its slice of one
-    merge buffer; only the fallback segment is copied in behind them.
+    class K3 fused reduction -> fallback pool (K13) -> K4 merge.  v2:
+    delivery (K11, K1) -> classes (K3 v2) -> fallback (piece route, then
+    K13) -> merge (K4).  Each class's K3 writes its slice of one merge
+    buffer, and K13 the fallback segment behind them.
 
     ``ops=PLAIN_OPS`` runs the plain PyTorch version of every kernel on
     the inputs' device — the reference the kernels are timed and checked
@@ -1160,19 +1178,19 @@ def spgemm_numeric_window(plan, a: CSR, b: CSR,
 
     Each stage is a span (``utils.profiling``): ``numeric.window.expand``
     (v1) or ``numeric.window.delivery`` (v2), then ``.classes``,
-    ``.fallback`` and ``.merge``.
+    ``.fallback`` and ``.merge``; the fallback stage counts its entries
+    and products (``numeric.window.fallback.entries``, ``.products``).
     """
     w: WindowStructure = plan.win
     res = merge_buffer(w, a.val)
-    fb_seg = None
     if w.fused_expand:
         with span("numeric.window.delivery"):
             bank, apv = v2_delivery(w, a.val, b.val, ops)
         with span("numeric.window.classes"):
             v2_classes(w, bank, apv, res, ops)
-        if w.fb_shuffle is not None:
+        if w.fb is not None:
             with span("numeric.window.fallback"):
-                fb_seg = v2_fallback(w, a.val, bank, ops)
+                v2_fallback(w, a.val, bank, res, ops)
     else:
         with span("numeric.window.expand"):
             prod = ops.expand(w.expand, a.val, b.val)
@@ -1180,11 +1198,11 @@ def spgemm_numeric_window(plan, a: CSR, b: CSR,
             for (fp, out), (base, slots, _, _) in zip(_class_slices(w, res),
                                                       w.class_geom):
                 ops.fused(fp, prod[base : base + slots], out=out)
-        if w.fb_shuffle is not None:
+        if w.fb is not None:
             with span("numeric.window.fallback"):
-                fb_seg = fallback_segment(w, prod, ops)
+                fallback_segment(w, prod, res, ops)
     with span("numeric.window.merge"):
-        c_val = merge_segments(plan, res, fb_seg, ops)
+        c_val = merge_segments(plan, res, ops)
     return CSR(
         rpt=plan.c_rpt,
         col=plan.c_col,

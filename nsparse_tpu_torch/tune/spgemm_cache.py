@@ -46,10 +46,11 @@ from nsparse_tpu_torch.tune.plan import matrix_fingerprint
 
 PLAN_FORMAT = "nsparse_tpu_torch.spgemm_plan"
 # bump when SpgemmPlan or any nested plan changes incompatibly
-PLAN_VERSION = 1
+PLAN_VERSION = 2  # 2: the window plan's fallback segment table (K13)
 
 
 def _registry() -> dict:
+    from nsparse_tpu_torch.ops.kernels.fallback import FallbackPlan
     from nsparse_tpu_torch.ops.kernels.flat_gather import FlatGatherPlan
     from nsparse_tpu_torch.ops.kernels.piecewise import (
         ExpandPlan,
@@ -69,7 +70,7 @@ def _registry() -> dict:
     return {c.__name__: c for c in (
         SpgemmPlan, SortStructure, GlobalStructure, WindowStructure,
         FusedClassPlan, ExpandPlan, PieceTables, PiecewisePlan, RunCopyPlan,
-        ShufflePlan, FlatGatherPlan)}
+        ShufflePlan, FlatGatherPlan, FallbackPlan)}
 
 
 def _encode(obj, name: str, arrays: dict, registry: dict):
@@ -276,6 +277,13 @@ def _check_flat_gather(p) -> None:
         "flat gather plan")
 
 
+def _check_fallback(p) -> None:
+    from nsparse_tpu_torch.ops.kernels.fallback import check_fallback_plan
+
+    _is_int32(p.src, p.dst, p.chunks, p.warps)
+    check_fallback_plan(p)
+
+
 def _check_fused(p) -> None:
     from nsparse_tpu_torch.ops.kernels.window_fused import (
         ClassPieces,
@@ -324,6 +332,7 @@ _CHECKS = {
     "FlatGatherPlan": _check_flat_gather,
     "FusedClassPlan": _check_fused,
     "PiecewisePlan": _check_piecewise,
+    "FallbackPlan": _check_fallback,
 }
 
 
@@ -423,7 +432,8 @@ def _check_window(plan, w) -> None:
             raise ValueError("v1 window classes do not fit the product "
                              "arena")
         prod_len = e.n
-    fb = (w.fb_shuffle, w.fb_perm) + ((w.pw,) if w.fused_expand else ())
+    fb = (w.fb, w.fb_shuffle, w.fb_perm) \
+        + ((w.pw,) if w.fused_expand else ())
     if all(x is None for x in fb):
         return
     if any(x is None for x in fb):
@@ -431,7 +441,9 @@ def _check_window(plan, w) -> None:
     if w.fused_expand and w.pw.nnz_a != plan.nnz_a:
         raise ValueError("window fallback pieces built for another A")
     if w.fb_off < 0 or w.fb_off + w.fb_len > prod_len \
-            or w.fb_perm.n != w.merge.n_src - w.n_compact:
+            or w.fb.n_src != w.fb_len \
+            or w.fb_perm.n != w.merge.n_src - w.n_compact \
+            or w.fb.n_out != w.fb_perm.n:
         raise ValueError("window fallback pool does not fit its arenas")
     _check_slab(w.fb_levels, w.fb_lvl_idx, w.fb_shuffle.n, "window fallback")
 

@@ -353,7 +353,7 @@ def test_cli_spgemm_plan_cache(tmp_path, capsys):
     assert "[cache hit]" in out2
     assert out1.rstrip().endswith("pass") and out2.rstrip().endswith("pass")
     assert [f for f in os.listdir(tmp_path)] == [
-        "spgemm_2bd49ff01d96b918_2bd49ff01d96b918_torch_v1.npz"]
+        "spgemm_2bd49ff01d96b918_2bd49ff01d96b918_torch_v2.npz"]
 
 
 def test_cli_spmv_profile(tmp_path, capsys):

@@ -170,7 +170,12 @@ def test_window_numeric_records_each_stage_once_a_call(monkeypatch, form):
               for s in (first, "classes", "fallback", "merge")]
     counts = {n: s["count"] for n, s in _spans().items()}
     assert counts == {"spgemm_numeric": 2, **{s: 2 for s in stages}}
-    assert _counters() == {}  # no host read; no launch off the card
+    # no host read and no launch off the card; the fallback stage counts
+    # its entries and products from the plan
+    fb = plan.win.fb
+    assert _counters() == {"numeric.window.fallback.entries": 2 * fb.n_out,
+                           "numeric.window.fallback.products":
+                               2 * fb.n_products}
     ref = (a.to_scipy() @ a.to_scipy()).toarray()
     np.testing.assert_allclose(c.to_dense().numpy(), ref, rtol=1e-5,
                                atol=1e-5)
