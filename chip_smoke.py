@@ -6,8 +6,8 @@ once on one CUDA card.
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi) and the toolchain;
-  2. build the sixteen Hopper kernels (K1-K12, K2 in its run, piece and
-     flat modes, K3 v1 and v2, K4 fixed and K-fold) from the twelve
+  2. build the Hopper kernels (K1-K14, K2 in its run, piece and flat
+     modes, K3 v1 and v2, K4 fixed and K-fold, the hash path) from the
      sources of ``nsparse_tpu_torch/csrc``;
   3. SpGEMM: C = A @ A on R-MAT-14 (edge factor 8, seed 1, float32) —
      ``choose_spgemm_path`` must answer esc; ``spgemm_plan`` on the host
@@ -68,7 +68,8 @@ Phases (any failure exits non-zero before the final line):
   3e. K4's K-fold mode alone on 2^24 output values, equal to its plain
      version bit for bit;
   4. SpMV, float32 unless marked, each path checked against scipy (rtol
-     1e-5, or 1e-8 in float64, scaled by |A||x|):
+     1e-5, or 1e-8 in float64, scaled by |A||x|); every ``plus_times``
+     ELL SpMV on the card is K14 (two launches, no K5, K1 or K6):
        irregular  R-MAT-20 (edge factor 16, seed 2), ELL (min_width 2,
                   max_slabs 10, sigma 1024) with and without x-shuffle;
        banded     5-point stencil 2048 x 2048: DIA, and ELL with sigma 0;
@@ -82,6 +83,14 @@ Phases (any failure exits non-zero before the final line):
                   card, one K7 launch held to its plain version within
                   32 eps of |A||x| (27 terms summed in two orders), timed
                   beside its bound;
+       Graph500   the ``g500-s21.spmv`` cell's shape (``ell_cell_case``):
+                  scale 21 from the benchmark's generator on the card,
+                  the cell's ELL geometry, f32; K14's two launches by
+                  entry point, y equal to K14's plain version and on a
+                  second call bit for bit, within the cell's ``y_gap``
+                  limit of the float64 CSR product, timed beside its
+                  bound (the L2 and L1 hit rates where Nsight Compute
+                  runs);
      the x-shuffle ELL SpMV under torch.profiler;
   5. block SpGEMM, C = A @ A through dense 256 x 256 tiles (K9):
        FEM f32    the FEM matrix above: ``choose_spgemm_path`` must answer
@@ -111,9 +120,9 @@ Phases (any failure exits non-zero before the final line):
      branches against their plain versions (``torch.equal``, f32 and
      f64; a 16-copy bank whose tails wrap, one copy, a misaligned
      ``b8_idx``; an ``other`` shorter than the slots, a misaligned
-     ``out``); K11 on the v2 path's call, K5 on the largest ELL call and
-     on the FEM value re-run, the same three ways, beside their bounds
-     and ``b_val[idx]`` / ``src[idx]``;
+     ``out``); K11 on the v2 path's call, K5 on the FEM value re-run,
+     the same three ways, beside their bounds and ``b_val[idx]`` /
+     ``src[idx]``;
   7c. K9 on tensor cores: the HMMA and DMMA counts of its built library
      (``cuobjdump --dump-sass``; fails if either is 0); synthetic tiles
      at bs 64, 128, 192 and 256 (both sub-tile branches), f32 and f64,
@@ -125,9 +134,7 @@ Phases (any failure exits non-zero before the final line):
   7d. K1: its vector branch (a length not a multiple of 4, the tail
      alone) and scalar branch (misaligned ``idx`` and ``out`` views) equal
      to ``gather_plain`` (``torch.equal``, f32 and f64, indices negative
-     and past the end among them); K1 on R-MAT-20's ELL x-shuffle and on
-     the v2 path's fallback shuffle, the same three ways, beside their
-     bounds and ``x[idx]``;
+     and past the end among them);
   7e. K3 and K2's piece modes: K3 per class of both window forms (width,
      windows, blocks per window, threads, shared memory, blocks per SM
      and global scratch, in f32 and f64), equal to its plain version in
@@ -189,6 +196,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -260,6 +268,13 @@ FFMA_PEAK = 67e12
 K9_SYNTH = ((64, 5, 7), (128, 4, 6), (192, 4, 5), (256, 3, 4))
 # K1's branch checks: outputs (one not a multiple of 4) and source length
 K1_CHECK = (1_000_003, 300_000)
+# K14 at the g500-s21.spmv cell's shape: its configuration and traffic
+# (bench_torch/configs, bench_torch/traffic) and a seed for the labels
+CELL_CONFIG, CELL_TRAFFIC, CELL_SEED = "g500-s21", "spmv", 2147483659
+# the launches of a plus_times ELL SpMV on the card: K14's two, no gather
+ELL_KERNELS = ["spmv_ell"]
+ELL_LAUNCHES = {"spmv_ell": 2, "gather_subset": 0, "gather": 0,
+                "scatter_tiles": 0}
 
 # name: (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -298,6 +313,10 @@ KERNELS = {
     # no TPU kernel: slab_class_reduce's XLA adds around planned_shuffle
     "fallback_sum": ("cuda", "nsparse_tpu_torch/csrc/fallback_sum.cu",
                      "nsparse_tpu/ops/spgemm.py:792"),
+    # no TPU kernel: the ELL SpMV's planned gathers and XLA's multiply and
+    # sums
+    "spmv_ell": ("cuda", "nsparse_tpu_torch/csrc/spmv_ell.cu",
+                 "nsparse_tpu/ops/spmv.py:92"),
 }
 # how each kernel is held against its plain version
 TOLERANCE = {
@@ -405,7 +424,7 @@ class Smoke:
         import nsparse_tpu_torch as nt
         from nsparse_tpu_torch.ops.kernels import (
             bsr_blocks, cuda_lib, dia, fallback, flat_gather, gather_tiles,
-            piecewise, runcopy, shuffle, spmv_bsr, window_fused)
+            piecewise, runcopy, shuffle, spmv_bsr, spmv_ell, window_fused)
         from nsparse_tpu_torch.utils.roofline import chip_specs
         from nsparse_tpu_torch.utils.timing import time_cuda
 
@@ -430,6 +449,7 @@ class Smoke:
             "expand_pieces_flat": piecewise.expand_pieces_flat,
             "runcopy_kfold": runcopy.runcopy_kfold,
             "fallback_sum": fallback.fallback_sum,
+            "spmv_ell": spmv_ell.spmv_ell,
         }
         self.plain = {
             "gather": shuffle.gather_plain,
@@ -450,6 +470,7 @@ class Smoke:
             "expand_pieces_flat": piecewise.expand_pieces_flat_plain,
             "runcopy_kfold": runcopy.runcopy_kfold_plain,
             "fallback_sum": fallback.fallback_sum_plain,
+            "spmv_ell": spmv_ell.spmv_ell_plain,
         }
         self.piecewise, self.window_fused = piecewise, window_fused
         # where the SpMV and block SpGEMM paths look each wrapper up
@@ -462,6 +483,7 @@ class Smoke:
             "spmv_bsr": [(spmv_bsr, "spmv_bsr")],
             "spgemm_bsr_blocks": [(bsr_blocks, "spgemm_bsr_blocks")],
             "windowed_gather": [(gather_tiles, "windowed_gather")],
+            "spmv_ell": [(spmv_ell, "spmv_ell")],
         }
         self.calls = {k: [] for k in KERNELS}     # [(path, args)]
         self.launches = {k: 0 for k in KERNELS}
@@ -688,6 +710,14 @@ class Smoke:
             nbytes = k3_bytes(self, k, args, out)
         elif k == "fallback_sum":
             nbytes = fallback_bytes(args[0], out.element_size())
+        elif k == "spmv_ell":
+            # the CSR yardstick's: each entry's value and column, the row
+            # pointers, x and y once (the benchmark's least work)
+            a, x = args
+            vb = x.element_size()
+            nbytes = a.nnz * (vb + 4) + (a.shape[0] + 1) * 4 \
+                + sum(a.shape) * vb
+            ops = 2.0 * a.nnz
         elif k == "runcopy_kfold":
             # the run descriptors, the K sub-runs of every run (strides of
             # at least the run's length: no value read twice), the output
@@ -2059,28 +2089,6 @@ def k5_launches(plans) -> int:
     return sum(1 for p in plans if p.units.numel())
 
 
-def ell_plans(ell) -> list:
-    """The gather plans of an ELL SpMV, one ``flat_gather`` each."""
-    plans = [ell.pos_gp]
-    plans += [ell.uniq_cols_gp, ell.xfill_gp] if ell.xsh is not None \
-        else list(ell.cols_gp)
-    return plans
-
-
-def ell_kernels(ell):
-    """The kernels an ELL SpMV must launch: its gather plans', and K1 for
-    the x-shuffle."""
-    need = gather_kernels(ell_plans(ell))
-    if ell.xsh is not None:
-        need.add("gather")
-    return sorted(need)
-
-
-def ell_k5(ell) -> dict:
-    """The exact K5 launches of an ELL SpMV."""
-    return {"gather_subset": k5_launches(ell_plans(ell))}
-
-
 def spmv_phases(s: Smoke) -> None:
     torch, nt = s.torch, s.nt
     from nsparse_tpu_torch.tune.plan import Plan
@@ -2109,9 +2117,9 @@ def spmv_phases(s: Smoke) -> None:
     x = x_for(a.shape[1], np.float32)
     ell_x_d = host_timed("ELL x-shuffle to the card", lambda: ell_x.to(s.dev))
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-xshuffle", a, ell_x_d, x,
-                ell_kernels(ell_x), np.float32, ell_k5(ell_x))
+                ELL_KERNELS, np.float32, ELL_LAUNCHES)
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-direct", a, ell_d.to(s.dev), x,
-                ell_kernels(ell_d), np.float32, ell_k5(ell_d))
+                ELL_KERNELS, np.float32, ELL_LAUNCHES)
     del ell_d
     x_d = x.to(s.dev)
     profile_calls(torch, lambda: nt.spmv(ell_x_d, x_d), "ELL x-shuffle SpMV")
@@ -2121,8 +2129,8 @@ def spmv_phases(s: Smoke) -> None:
     ell64 = dataclasses.replace(
         ell_x_d, vals=tuple(v.double() for v in ell_x_d.vals))
     s.spmv_path(f"rmat{RMAT_SCALE}-ell-xshuffle-f64", a64, ell64,
-                x_for(a.shape[1], np.float64), ell_kernels(ell_x), np.float64,
-                ell_k5(ell_x))
+                x_for(a.shape[1], np.float64), ELL_KERNELS, np.float64,
+                ELL_LAUNCHES)
     del ell_x, ell_x_d, ell64, a64, a
 
     # banded: 5-point stencil as DIA and as row-ordered ELL
@@ -2133,8 +2141,8 @@ def spmv_phases(s: Smoke) -> None:
     x = x_for(a.shape[1], np.float32)
     s.spmv_path("stencil-dia", a, dia.to(s.dev), x, ["spmv_dia"], np.float32)
     ell = host_timed("ELL sigma 0", lambda: nt.ELL.from_csr(a, sigma=0))
-    s.spmv_path("stencil-ell-sigma0", a, ell.to(s.dev), x, ell_kernels(ell),
-                np.float32, ell_k5(ell))
+    s.spmv_path("stencil-ell-sigma0", a, ell.to(s.dev), x, ELL_KERNELS,
+                np.float32, ELL_LAUNCHES)
     del ell
     a64 = a.with_values(a.val.double())
     s.spmv_path("stencil-dia-f64", a64,
@@ -2157,6 +2165,7 @@ def spmv_phases(s: Smoke) -> None:
         fail(f"tuner: format {plan.format}, {nf} mismatches")
     del a, a64, dia, fmt
     hpcg_dia_case(s)
+    ell_cell_case(s)
 
     # FEM: dense 16-dof blocks as (128, 128) BSR tiles
     a = host_timed("generate FEM", lambda: nt.fem_block_csr(
@@ -2169,6 +2178,171 @@ def spmv_phases(s: Smoke) -> None:
     s.spmv_path("fem-bsr128", a, bsr_d, x_for(a.shape[1], np.float32),
                 ["spmv_bsr"], np.float32)
     precision_check(s, bsr_d)
+
+
+def cell_graph(s: Smoke, config: str, seed: int):
+    """Pattern 0 of a benchmark configuration (``bench_torch/configs``),
+    made on the card by the benchmark's generator from ``seed``, as the
+    port's CSR on the host (as the benchmark's entries hand it over)."""
+    nt = s.nt
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "bench_torch")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import importlib
+
+    with open(os.path.join(bench, "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+    gen = importlib.import_module(f"generators.{cfg['generator']}")
+    g = gen.generate(cfg, 0, seed, s.dev)
+    return nt.CSR(rpt=g.rpt.cpu(), col=g.col.cpu(), val=g.val.cpu(),
+                  shape=g.shape, nnz=int(g.col.numel()))
+
+
+def cell_traffic(name: str) -> dict:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "bench_torch", "traffic", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _ncu_rates(ncu: str, kernel: str, script: str) -> tuple:
+    """(rates, why not) of ``kernel`` in ``python3 -c script`` under
+    Nsight Compute."""
+    try:
+        r = subprocess.run(
+            [ncu, "--kernel-name", f"regex:{kernel}", "--launch-count", "1",
+             "--metrics", "lts__t_sector_hit_rate.pct,"
+             "l1tex__t_sector_hit_rate.pct", sys.executable, "-c", script],
+            capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        return [], "ncu ran past 300 s"
+    rates = [ln.strip() for ln in r.stdout.splitlines()
+             if "hit_rate" in ln]
+    tail = (r.stdout + r.stderr).strip().splitlines()[-3:]
+    return rates, f"ncu exit {r.returncode}, no rates: {tail}"
+
+
+def hit_rates(kernel: str, script: str) -> str:
+    """The L2 and L1 sector hit rates of ``kernel`` in ``python3 -c
+    script`` by Nsight Compute, or why there are none.  A one-launch probe
+    runs first, so that a machine where ncu cannot profile does not pay
+    for ``script``."""
+    ncu = shutil.which("ncu") or "/usr/local/cuda/bin/ncu"
+    if not os.path.exists(ncu):
+        return "Nsight Compute (ncu) is not on this machine: not measured"
+    probe = "import torch; torch.ones(8, device='cuda').add_(1)"
+    rates, why = _ncu_rates(ncu, ".", probe)
+    if rates:
+        rates, why = _ncu_rates(ncu, kernel, script)
+    return "; ".join(rates) if rates else f"{why}: not measured"
+
+
+def ell_cell_case(s: Smoke) -> None:
+    """K14 at the ``g500-s21.spmv`` cell's shape: the cell's graph from
+    the benchmark's generator (pattern 0, labels and weights from
+    CELL_SEED) as an ELL of the cell's geometry (its x-shuffle plans left
+    out: K14 reads none of them), float32.  One ``nt.spmv`` must make
+    K14's two launches (``launch.nsp_spmv_ell_slabs`` and ``_rows`` 1
+    each) and nothing else; y must equal K14's plain version and a second
+    call's y bit for bit, and lie within the cell's ``y_gap`` limit of
+    the float64 CSR product (|y - ref| / |A||x|).  Then timed by CUDA
+    events, queued behind a sleep and by the profiler per launch, beside
+    the CSR yardstick's bound and cuSPARSE's CSR SpMV (``torch.sparse``),
+    and the L2 and L1 hit rates where Nsight Compute runs."""
+    torch, nt = s.torch, s.nt
+    from nsparse_tpu_torch.ops.kernels import spmv_ell as k14
+    from nsparse_tpu_torch.utils import profiling
+
+    tr = cell_traffic(CELL_TRAFFIC)
+    what = f"{CELL_CONFIG}.{CELL_TRAFFIC} shape"
+    a = host_timed(f"{what}: graph on the card",
+                   lambda: cell_graph(s, CELL_CONFIG, CELL_SEED))
+    geom = {k: v for k, v in tr["ell"].items() if k != "xshuffle"}
+    ell = host_timed(f"{what}: ELL without x-shuffle plans", lambda:
+                     nt.ELL.from_csr(a, xshuffle=False, **geom)).to(s.dev)
+    rows = [v.shape[1] for v in ell.vals]
+    live = [int(ln.sum()) for ln in ell.lens]
+    n_split = 0 if ell.split_rows is None else ell.split_rows.numel()
+    chunks = 0 if ell.split_slots is None else \
+        int((ell.split_slots >= 0).sum())
+    print(f"{what}: {a.shape[0]} rows, nnz {a.nnz}, {ell.padded_nnz} slots "
+          f"({ell.padded_nnz / max(a.nnz, 1):.3f} a stored entry); slabs "
+          f"(width, rows, entries): {list(zip(ell.widths, rows, live))}"
+          f"; {n_split} split rows, {chunks} extra chunks", flush=True)
+    x = torch.randn(a.shape[1], device=s.dev,
+                    generator=torch.Generator(s.dev).manual_seed(CELL_SEED))
+    profiling.reset()
+    with profiling.recording():
+        y = s.counted(lambda: nt.spmv(ell, x), ELL_KERNELS, what,
+                      exact=ELL_LAUNCHES)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    want_c = {"launch.nsp_spmv_ell_slabs": 1, "launch.nsp_spmv_ell_rows": 1,
+              "spmv.ell.k14": 1, "spmv.ell.k14.slots": ell.padded_nnz}
+    launches = {k: v for k, v in counters.items() if k.startswith("launch.")}
+    ok_c = all(counters.get(k) == v for k, v in want_c.items()) \
+        and sum(launches.values()) == 2
+    print(f"{what}: counters {counters}: {'pass' if ok_c else 'FAIL'}",
+          flush=True)
+    y2 = nt.spmv(ell, x)
+    plain = k14.spmv_ell_plain(ell, x)
+    same = torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    eq_plain = torch.equal(y, plain)
+    del y2, plain
+    a_d = a.to(s.dev)
+    a64 = a_d.with_values(a_d.val.double())
+    ref = nt.spmv_csr(a64, x.double())
+    scale = nt.spmv_csr(a64.with_values(a64.val.abs()), x.double().abs())
+    gap = float(((y.double() - ref).abs() / scale.clamp(min=1e-30)).max())
+    limit = tr["limits"]["y_gap"]
+    del ref, scale, a64
+    ok = ok_c and same and eq_plain and gap <= limit \
+        and bool(torch.isfinite(y).all())
+    print(f"{what}: two calls equal bit for bit {same}; equal to the plain "
+          f"version {eq_plain}; y_gap {gap:.3g} against the f64 CSR "
+          f"(limit {limit:g}): {'pass' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{what}: K14 counters, repeat, plain or y_gap check failed")
+
+    def run():
+        return nt.spmv(ell, x)
+
+    ms = s.time_cuda(run, trials=TRIALS)
+    queued = queued_device_ms(torch, run)
+    dev = {k: profiled_device_ms(torch, run, k)
+           for k in ("ell_slabs_kernel", "ell_rows_kernel")}
+    nbytes = a.nnz * 8 + (a.shape[0] + 1) * 4 + sum(a.shape) * 4
+    bound = nbytes / s.bw * 1e3
+    dev_txt = ", ".join(f"{k} {fmt_ms(m)} ms ({n} recorded)"
+                        for k, (m, n) in dev.items())
+    csr = torch.sparse_csr_tensor(a_d.rpt.long(), a_d.col.long(), a_d.val,
+                                  size=a.shape)
+    lib_ms = s.time_cuda(lambda: csr @ x, trials=TRIALS)
+    del csr
+    print(f"{what} [{s.name}, {s.card}]: K14 {ms:.4f} ms a call by CUDA "
+          f"events ({2 * a.nnz / ms / 1e6:.2f} GFLOP/s), {fmt_ms(queued)} "
+          f"ms queued behind a sleep; by the profiler {dev_txt}; CSR bound "
+          f"{bound:.4f} ms ({nbytes} B): {100 * bound / ms:.1f}% of it; "
+          f"torch.sparse CSR @ x {lib_ms:.4f} ms", flush=True)
+    s.record(run, what)
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = (f"import sys; sys.path.insert(0, {here!r}); import torch, "
+              "chip_smoke as cs; s = cs.Smoke(torch, ''); "
+              "s.cuda_lib.KERNELS.get(); cs.ell_cell_hot(s)")
+    print(f"{what}: K14 slabs kernel hit rates: "
+          f"{hit_rates('ell_slabs_kernel', script)}", flush=True)
+
+
+def ell_cell_hot(s: Smoke) -> None:
+    """The cell-shape K14 call alone, for a profiler that starts this
+    process (``hit_rates``)."""
+    tr = cell_traffic(CELL_TRAFFIC)
+    a = cell_graph(s, CELL_CONFIG, CELL_SEED)
+    geom = {k: v for k, v in tr["ell"].items() if k != "xshuffle"}
+    ell = s.nt.ELL.from_csr(a, xshuffle=False, **geom).to(s.dev)
+    x = s.torch.randn(a.shape[1], device=s.dev)
+    s.nt.spmv(ell, x)
+    s.torch.cuda.synchronize()
 
 
 def hpcg_diagonals(torch, n: int, dev):
@@ -2682,10 +2856,10 @@ def bank_subset_phase(s: Smoke) -> None:
     table that ends inside a vector; K5's vector branch with an ``other``
     shorter than the slots and without one, and its scalar branch (an
     ``out`` view one element off, a unit of 1001 slots).  Then, where the
-    paths have run, K11 on the v2 path's call and K5 on the largest ELL
-    call and on the FEM value re-run's calls, by CUDA events, by the
-    profiler's device time and queued behind a device sleep, beside their
-    bounds and library calls."""
+    paths have run, K11 on the v2 path's call and K5 on the FEM value
+    re-run's calls, by CUDA events, by the profiler's device time and
+    queued behind a device sleep, beside their bounds and library
+    calls."""
     torch = s.torch
     from nsparse_tpu_torch.ops.kernels import gather_tiles as gt
     from nsparse_tpu_torch.ops.kernels import piecewise as pw
@@ -2745,12 +2919,6 @@ def bank_subset_phase(s: Smoke) -> None:
     if calls:
         measure_calls(s, "build_bank", "K11 on spgemm", calls,
                       "build_bank_kernel", "b_val[idx]")
-    ell = [(p, a) for p, a in s.calls["gather_subset"] if "-ell-" in p]
-    if ell:
-        path, args = max(ell, key=lambda c: c[1][2].numel() * c[1][3])
-        measure_calls(s, "gather_subset",
-                      f"K5 on {path}, its largest ELL call", [args],
-                      "gather_subset", "src[idx]")
     calls = [a for p, a in s.calls["gather_subset"] if p == "fem-bsr-rerun"]
     if calls:
         measure_calls(s, "gather_subset", "K5 on fem-bsr-rerun", calls,
@@ -2859,10 +3027,7 @@ def k1_phase(s: Smoke) -> None:
     K1_CHECK[0] outputs, not a multiple of 4) and its scalar branch (an
     ``idx`` view and an ``out`` view one element off alignment) held
     against ``gather_plain`` with ``torch.equal`` in f32 and f64, indices
-    negative and past the end of x among them.  Then, where the paths have
-    run, K1 on R-MAT-20's ELL x-shuffle (its largest call), by CUDA
-    events, by the profiler's device time and queued behind a device
-    sleep, beside its bound and ``x[idx]``."""
+    negative and past the end of x among them."""
     torch, cl = s.torch, s.cuda_lib
     from nsparse_tpu_torch.ops.kernels import shuffle
 
@@ -2892,17 +3057,6 @@ def k1_phase(s: Smoke) -> None:
         out = torch.full((n + 1,), 7.0, dtype=dtype, device=s.dev)[1:]
         cl.launch("gather", "nsp_gather", x, n_x, idx, out, n)
         check(f"scalar branch, out one element off, {dtype}", out, want)
-
-    picks = []
-    ell = [a for p, a in s.calls["gather"]
-           if p == f"rmat{RMAT_SCALE}-ell-xshuffle"]
-    if ell:
-        picks.append((f"R-MAT-{RMAT_SCALE} ELL x-shuffle (its largest call)",
-                      max(ell, key=lambda a: a[1].numel())))
-    for label, args in picks:
-        measure_calls(s, "gather", f"K1 on {label}, {args[1].numel()} outputs "
-                      f"from {args[0].numel()} values", [args], "gather",
-                      "x[idx]")
 
 
 def to_f64(torch, args):
@@ -3090,15 +3244,12 @@ def launch_cost_phase(s: Smoke) -> None:
         "x[idx], 1 tile": lambda: src[idx_l],
     }
     # the main path's own calls: K12, K11 and K4 on R-MAT-14's v2 path,
-    # K6, K5 and K1 on the stencil ELL, K7 on the stencil DIA and K8 on the
-    # FEM BSR, each beside its library call where there is one
+    # K14 on the stencil ELL, K7 on the stencil DIA and K8 on the FEM BSR,
+    # each beside its library call where there is one
     for k, path, lib in (("gather_tiles8", "spgemm", "index_select"),
                          ("build_bank", "spgemm", "b_val[idx]"),
                          ("runcopy", "spgemm", "src[idx]"),
-                         ("scatter_tiles", "stencil-ell-sigma0",
-                          "index_copy_"),
-                         ("gather_subset", "stencil-ell-sigma0", "src[idx]"),
-                         ("gather", "stencil-ell-sigma0", "x[idx]"),
+                         ("spmv_ell", "stencil-ell-sigma0", None),
                          ("spmv_dia", "stencil-dia", None),
                          ("spmv_bsr", "fem-bsr128", "sparse_bsr_tensor @ x")):
         calls = [a for p, a in s.calls[k] if p == path]

@@ -14,7 +14,7 @@ profiling utilities, the CLI, and the distributed layer
 (``nsparse_tpu_torch.parallel``: row-sharded SpMV and SpGEMM, halo
 exchange and R·A·P over a mesh of devices; ``rap`` is R·A·P on one
 device).  Their kernels are hand-written CUDA
-for Hopper, thirteen sources in ``csrc/`` (K1-K12, with K2's piece and
+for Hopper, fifteen sources in ``csrc/`` (K1-K14, with K2's piece and
 flat modes and K4's K-fold mode, each beside its plain PyTorch version;
 and the hash SpGEMM, whose plain counterpart is the device planner's
 path).

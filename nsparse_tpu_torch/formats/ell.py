@@ -18,6 +18,7 @@ order (``uniq_cols_gp``, ``xfill_gp``, ``xsh``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import TYPE_CHECKING, Tuple
 
 import numpy as np
@@ -31,6 +32,7 @@ if TYPE_CHECKING:  # the plan constructors are imported where they run:
     # the ops package imports this module
     from nsparse_tpu_torch.ops.kernels.flat_gather import FlatGatherPlan
     from nsparse_tpu_torch.ops.kernels.shuffle import ShufflePlan
+    from nsparse_tpu_torch.ops.kernels.spmv_ell import SlabTable
 
 LANES = 128
 SUBLANES = 8
@@ -58,8 +60,9 @@ class ELL:
       shape, widths, nnz: (M, N), slab widths, true nnz.
       lens: per-slab (R_i,) int32 true row lengths (0 on padding rows).
       uniq_cols_gp, xfill_gp, xsh: the x-shuffle plans (or None).
-      split_rows: (k,) int32 rows that were split (or None);
-      split_slots: (k, C) int32 slots of their extra chunks (-1 pad).
+      split_rows: (k,) int32 rows that were split, ascending (or None);
+      split_slots: (k, C) int32 slots of their extra chunks (-1 pads,
+        trailing).
     """
 
     vals: Tuple[torch.Tensor, ...]
@@ -85,6 +88,15 @@ class ELL:
     def padded_nnz(self) -> int:
         """Stored slots, explicit zeros included."""
         return int(sum(v.numel() for v in self.vals))
+
+    @functools.cached_property
+    def slab_table(self) -> SlabTable:
+        """K14's launch table of these slabs on the card
+        (``ops.kernels.spmv_ell.slab_table``), built at the first SpMV
+        and kept with the slabs."""
+        from nsparse_tpu_torch.ops.kernels.spmv_ell import slab_table
+
+        return slab_table(self)
 
     def to(self, device) -> "ELL":
         with span("prep.to_device"):
@@ -123,6 +135,12 @@ class ELL:
         )
 
         vals = tuple(torch.from_numpy(np.array(v)) for v in vals)
+        if split_rows is not None and (
+                np.any(np.diff(np.asarray(split_rows, np.int64)) <= 0)
+                or np.any(np.diff((np.asarray(split_slots) >= 0)
+                                  .astype(np.int8), axis=1) > 0)):
+            raise ValueError("ELL: split rows must be strictly ascending, "
+                             "each row's -1 chunk pads trailing")
         cols_np = [np.array(c, dtype=np.int32) for c in cols]
         pos = np.asarray(pos, dtype=np.int32)
         xsh = ({} if xshuffle_src is None

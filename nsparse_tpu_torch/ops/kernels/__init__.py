@@ -9,9 +9,12 @@ every piece class), K3
 TPU counterpart does), K11 ``piecewise.build_bank`` (the pre-rolled bank,
 or the flat table), K12 ``gather_tiles.gather_tiles8``, K13
 ``fallback.fallback_sum`` (the window numeric's fallback segment, in one
-launch); the sort layout runs ``flat_gather``.  SpMV: K5 ``gather_tiles.gather_subset``, K6
-``gather_tiles.scatter_tiles`` (both through ``flat_gather``), K7
-``dia.spmv_dia``, K8 ``spmv_bsr.spmv_bsr``.  Block SpGEMM: K9
+launch); the sort layout runs ``flat_gather``.  SpMV: K14
+``spmv_ell.spmv_ell`` (every ``plus_times`` ELL SpMV on the card, in two
+launches), K5 ``gather_tiles.gather_subset`` and K6
+``gather_tiles.scatter_tiles`` (both through ``flat_gather``: the ELL
+paths of the other semirings and of the CPU), K7 ``dia.spmv_dia``, K8
+``spmv_bsr.spmv_bsr``.  Block SpGEMM: K9
 ``bsr_blocks.spgemm_bsr_blocks`` (with K5, K1 and K6 on a value re-run's
 re-blockification).  K10 ``gather_tiles.windowed_gather`` stands alone,
 as its TPU counterpart does.

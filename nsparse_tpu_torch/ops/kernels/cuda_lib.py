@@ -27,7 +27,7 @@ SOURCES = ("gather.cu", "expand.cu", "fused_class.cu", "runcopy.cu",
            "gather_subset.cu", "scatter_tiles.cu", "spmv_dia.cu",
            "spmv_bsr.cu", "spgemm_bsr.cu", "windowed_gather.cu",
            "build_bank.cu", "gather_tiles8.cu", "spgemm_hash.cu",
-           "fallback_sum.cu")
+           "fallback_sum.cu", "spmv_ell.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "nsp_runcopy_kfold": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P],
     "nsp_fallback_sum": [_P, _P, _P, _P, _P, _I64, _I64_ARRAY, _I32, _P,
                          _P],
+    "nsp_spmv_ell_slabs": [_P, _P, _I64_ARRAY, _I32, _I64, _P],
+    "nsp_spmv_ell_rows": [_P, _P, _I64, _P, _P, _P, _I32, _P, _P],
     "nsp_hash_bin": [_P, _P, _P, _P, _I32, _I64, _I64, _I64_ARRAY, _I32,
                      _I32, _P, _P, _P, _P, _P],
     "nsp_hash_scatter": [_P, _I64, _P, _I32, _P, _P],

@@ -3,10 +3,11 @@
 
 - ``spmv_csr``: gather x[col], combine, reduce by row — the semantic
   contract and the path of every semiring on CSR.
-- ``spmv_ell``: per width-binned slab ``sum_w val[w, :] * x[col[w, :]]``
-  through planned gathers (``flat_gather``: K5, K1, K6), or through the
-  x-shuffle plans when the ELL carries them; the output permutation is
-  one more planned gather.
+- ``spmv_ell``: per width-binned slab ``sum_w val[w, :] * x[col[w, :]]``;
+  ``plus_times`` on the card in float32 or float64 is K14 (two launches:
+  the slabs, then the rows); elsewhere planned gathers (``flat_gather``:
+  K5, K1, K6), or the x-shuffle plans when the ELL carries them, and the
+  output permutation as one more planned gather.
 - ``spmv_dia``: one pass over the diagonals (K7).
 - ``spmv_bsr``: dense tiles; (128, 128) tiles go through K8.
 
@@ -25,6 +26,7 @@ from nsparse_tpu_torch.formats.dia import DIA
 from nsparse_tpu_torch.formats.ell import ELL
 from nsparse_tpu_torch.ops.kernels import dia as dia_kernel
 from nsparse_tpu_torch.ops.kernels import spmv_bsr as bsr_kernel
+from nsparse_tpu_torch.ops.kernels import spmv_ell as ell_kernel
 from nsparse_tpu_torch.ops.kernels.flat_gather import flat_gather
 from nsparse_tpu_torch.ops.kernels.shuffle import planned_shuffle
 from nsparse_tpu_torch.utils.device import highest_matmul_precision
@@ -94,17 +96,24 @@ def spmv_ell(a: ELL, x: torch.Tensor,
              semiring: str = "plus_times") -> torch.Tensor:
     """y = A (.) x for width-binned ELL slabs over a semiring.
 
-    ``plus_times`` reads x through the planned gathers: the x-shuffle
-    plans when the ELL has them (a gather of the used columns and a fill
-    in column-sorted order, both ``flat_gather``, then a permutation to
-    slab order, K1), else one ``flat_gather`` per slab fused with the
-    multiply by the slab's values.  Other semirings mask padded slots
-    with the identity through the row lengths and gather x directly.
+    ``plus_times`` with the slabs on the card in float32 or float64 is
+    K14 (``ops.kernels.spmv_ell``), whether or not the ELL carries
+    x-shuffle plans.  Elsewhere ``plus_times`` reads x through the
+    planned gathers: the x-shuffle plans when the ELL has them (a gather
+    of the used columns and a fill in column-sorted order, both
+    ``flat_gather``, then a permutation to slab order, K1), else one
+    ``flat_gather`` per slab fused with the multiply by the slab's
+    values.  Other semirings mask padded slots with the identity through
+    the row lengths and gather x directly.
 
     Stages are spans (``utils.profiling``): ``spmv.gather_x`` (the
-    x-shuffle plans), ``spmv.slabs`` (each slab's products and sums) and
-    ``spmv.rows`` (the slab outputs to rows, split rows folded in).
+    x-shuffle plans), ``spmv.slabs`` (each slab's products and sums; K14's
+    first launch) and ``spmv.rows`` (the slab outputs to rows, split rows
+    folded in; K14's second launch).
     """
+    if semiring == "plus_times" and a.vals[0].is_cuda \
+            and a.dtype in (torch.float32, torch.float64):
+        return ell_kernel.spmv_ell(a, x)
     if semiring != "plus_times":
         _, combine, ident, reduce_e = SEMIRINGS[semiring]
         outs = []

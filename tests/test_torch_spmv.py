@@ -1,6 +1,6 @@
 """The port's SpMV path against the JAX package: generators, oracles and
-roofline, the ELL/DIA/BSR conversions, the DIA (K7) and BSR (K8)
-kernels' plain versions, the ``spmv`` dispatch over every format and
+roofline, the ELL/DIA/BSR conversions, the DIA (K7), BSR (K8) and ELL
+(K14) kernels' plain versions, the ``spmv`` dispatch over every format and
 semiring, ``spmm``, the tuner and the ``spmv`` CLI.
 
 Inputs are made with numpy from fixed seeds and go through both packages
@@ -8,9 +8,14 @@ Inputs are made with numpy from fixed seeds and go through both packages
 Structures must be equal array for array.  Values: f64 at rtol 1e-12
 (sums may be taken in another order), f32 at rtol 1e-6 against the JAX
 Pallas kernels in interpret mode.  The CUDA kernels are held against the
-same plain versions on the card by ``chip_smoke.py``.
+same plain versions on the card by ``chip_smoke.py``.  K14's plain
+version (the ELL SpMV in the kernel's order of adds) is held against the
+JAX ELL SpMV within ``nsparse_tpu/utils/checking.py``'s tolerances, and
+against a stand-in for the card that runs the kernel's C contract from
+its slab table (``_K14Card``) bit for bit.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -38,10 +43,13 @@ from nsparse_tpu.utils import roofline as jroof
 
 import nsparse_tpu_torch as nt
 import nsparse_tpu_torch.formats.ell as tellmod
+from nsparse_tpu_torch.ops.kernels import cuda_lib
 from nsparse_tpu_torch.ops.kernels import dia as k7
 from nsparse_tpu_torch.ops.kernels import spmv_bsr as k8
+from nsparse_tpu_torch.ops.kernels import spmv_ell as k14
 from nsparse_tpu_torch.tune import autotune
 from nsparse_tpu_torch.tune.plan import Plan, matrix_fingerprint
+from nsparse_tpu_torch.utils import profiling
 from nsparse_tpu_torch.utils import roofline as troof
 
 from test_torch_gather import _same_plan
@@ -77,6 +85,19 @@ MATRICES = {
     "rmat": lambda: nt.rmat_csr(8, edge_factor=4, seed=3),
     "hubs": _hub_matrix,
 }
+
+
+def _wide_matrix(seed=5, m=3000):
+    """Rows of 2 to 40 entries, every 97th row 2,500 wide: unsplit, its
+    slab is 4,096 wide, and row 50 lies in one of 2,048."""
+    rng = np.random.default_rng(seed)
+    deg = np.where(np.arange(m) % 97 == 3, 2500, rng.integers(2, 40, m))
+    deg[50] = 1500
+    rows = np.repeat(np.arange(m), deg)
+    cols = np.concatenate([rng.choice(m, size=d, replace=False)
+                           for d in deg])
+    return nt.CSR.from_scipy(sp.csr_matrix(
+        (rng.standard_normal(rows.size), (rows, cols)), shape=(m, m)))
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +316,283 @@ def test_kernel_wrappers_refuse_bad_inputs():
                     64)
     with pytest.raises(ValueError):
         k8.spmv_bsr(nt.BSR.from_csr(a), torch.zeros(64, dtype=torch.float64))
+
+
+def test_ell_kernel_wrapper_refuses_bad_inputs(monkeypatch):
+    """K14's wrapper refuses x of another dtype or length and slabs off a
+    card before the kernel library is touched; no launch is counted."""
+    def refuse():
+        pytest.fail("the kernel library was touched before the checks")
+
+    monkeypatch.setattr(cuda_lib.KERNELS, "get", refuse)
+    monkeypatch.setattr(cuda_lib, "_RESOLVED", {})
+    e = nt.ELL.from_csr(nt.stencil_csr(8, 8))
+    before = k14.spmv_ell.launches
+    with pytest.raises(TypeError, match="x is torch.float32"):
+        k14.spmv_ell(e, torch.zeros(64, dtype=torch.float32))
+    for bad in (torch.zeros(63, dtype=torch.float64),
+                torch.zeros(64, 1, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="64 columns"):
+            k14.spmv_ell(e, bad)
+    meta = e.to("meta")
+    for x in (torch.zeros(64, dtype=torch.float64, device="meta"),
+              torch.zeros(64, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="must be on one CUDA device"):
+            k14.spmv_ell(meta, x)
+    e16 = dataclasses.replace(e, vals=tuple(v.half() for v in e.vals))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        k14.slab_table(e16)
+    assert k14.spmv_ell.launches == before
+
+
+@pytest.mark.parametrize("fault", ["unsorted", "inner-pad"])
+def test_ell_refuses_malformed_split_tables(fault):
+    """K14 finds a block's split rows by search and stops at a row's
+    first -1 chunk pad: the split rows must ascend and the pads trail."""
+    j = JELL.from_csr(_j(_hub_matrix()), split_width=64)
+    rows = np.asarray(j.split_rows).copy()
+    slots = np.asarray(j.split_slots).copy()
+    assert slots.shape[1] > 1 and (slots[:, 0] >= 0).all()
+    if fault == "unsorted":
+        rows = rows[::-1].copy()
+    else:
+        slots[0, 0] = -1
+    with pytest.raises(ValueError, match="ascending"):
+        nt.ELL.from_numpy(
+            [np.asarray(v) for v in j.vals], [np.asarray(c) for c in j.cols],
+            np.asarray(j.pos), j.shape, j.widths, j.nnz,
+            [np.asarray(ln) for ln in j.lens], rows, slots)
+
+
+# ---------------------------------------------------------------------------
+# K14, the ELL SpMV kernel: its plain version against JAX, its C contract
+# on a stand-in for the card
+# ---------------------------------------------------------------------------
+
+
+def _with_dtype(a, dtype):
+    return a.with_values(torch.from_numpy(a.val.numpy().astype(dtype)))
+
+
+def _k14_against_jax(a, dtype, **kw):
+    """K14's plain version on the port's ELL against the JAX ELL SpMV of
+    the same slabs, within ``checking.ans_check``'s tolerance of |A||x|;
+    returns the port's ELL."""
+    a = _with_dtype(a, dtype)
+    t = nt.ELL.from_csr(a, **kw)
+    j = JELL.from_csr(_j(a), **kw)
+    x = _x(a.shape[1], dtype)
+    want = np.asarray(j_spmv(j, jnp.asarray(x), use_pallas=False))
+    got = k14.spmv_ell(t, torch.from_numpy(x)).numpy()
+    assert got.dtype == dtype
+    ok, nf = jchk.ans_check(got, want, dtype=dtype,
+                            scale=jchk.spmv_abs_oracle(_j(a), x))
+    assert ok, nf
+    return t
+
+
+@pytest.mark.parametrize("sigma", [0, 64, 1024, None])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_ell_kernel_plain_matches_jax(name, dtype, sigma):
+    """Every matrix, both dtypes, every sort window; hub rows of 300
+    entries split at 64 (five chunks) and unsplit."""
+    for split_width in (64, None):
+        t = _k14_against_jax(MATRICES[name](), dtype, min_width=2,
+                             max_slabs=10, sigma=sigma,
+                             split_width=split_width)
+        if name == "hubs":
+            assert (t.split_rows is not None) == (split_width is not None)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("split_width", [None, 1024])
+def test_ell_kernel_plain_matches_jax_on_wide_slabs(split_width, dtype):
+    """Slabs past 512 wide: a thread walks the whole of a row."""
+    t = _k14_against_jax(_wide_matrix(), dtype, min_width=2,
+                         split_width=split_width)
+    assert max(t.widths) == (4096 if split_width is None else 1024)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("xshuffle", [False, True])
+def test_ell_kernel_plain_matches_jax_with_and_without_xshuffle(
+        xshuffle, dtype, monkeypatch):
+    """The x-shuffle plans change nothing K14 reads."""
+    for mod in (jellmod, tellmod):
+        monkeypatch.setattr(mod, "XSH_MIN_SLOTS", 1)
+        monkeypatch.setattr(mod, "XSH_BAD_FRAC", 0.0)
+    t = _k14_against_jax(nt.random_csr(700, 5000, density=0.01, seed=13),
+                         dtype, xshuffle=xshuffle)
+    assert (t.xsh is not None) == xshuffle
+
+
+@pytest.mark.parametrize("split_width", [4, 8, 32])
+def test_ell_kernel_plain_matches_jax_on_many_chunks(split_width):
+    """Split rows of up to 75 chunks: a row's extra chunks added in the
+    order of its ``split_slots`` row."""
+    t = _k14_against_jax(_hub_matrix(), np.float64, min_width=2,
+                         split_width=split_width)
+    assert t.split_slots.shape[1] == -(-300 // split_width) - 1
+
+
+def test_ell_kernel_plain_empty_rows_and_matrix():
+    m = np.zeros((30, 40))
+    m[4, 7] = 3.0
+    x = _x(40)
+    for dense in (m, np.zeros((30, 40))):
+        a = nt.CSR.from_scipy(sp.csr_matrix(dense))
+        y = k14.spmv_ell(nt.ELL.from_csr(a), torch.from_numpy(x))
+        np.testing.assert_array_equal(y.numpy(), dense @ x)
+    a = nt.CSR.from_scipy(sp.csr_matrix(np.zeros((5, 0))))
+    y = k14.spmv_ell(nt.ELL.from_csr(a), torch.zeros(0, dtype=torch.float64))
+    np.testing.assert_array_equal(y.numpy(), np.zeros(5))
+
+
+class _K14Card:
+    """Runs K14's two C entry points on CPU tensors from their arguments
+    alone, as the kernel's blocks and threads take them: the slab table's
+    pointers are resolved among the ELL's tensors."""
+
+    def __init__(self, ell):
+        self.tensors = {t.data_ptr(): t for t in (*ell.vals, *ell.cols,
+                                                  *ell.lens)}
+        self.calls = []
+
+    def launch(self, what, name, *args):
+        sig = cuda_lib._SIGNATURES[name][:-1]
+        assert len(args) == len(sig), name
+        for a, kind in zip(args, sig):
+            if kind is cuda_lib._P:
+                assert (isinstance(a, torch.Tensor) and a.is_contiguous()) \
+                    or a == 0, name
+            elif kind is cuda_lib._I64_ARRAY:
+                assert isinstance(a, ctypes.Array), name
+            else:
+                assert type(a) is int, name
+        self.calls.append(name)
+        getattr(self, name[len("nsp_spmv_ell_"):])(*args)
+
+    def slabs(self, x, out, table, n_slabs, n_blocks):
+        f = np.array(table[: k14.FIELDS * n_slabs], np.int64).reshape(
+            n_slabs, k14.FIELDS)
+        assert (np.diff(f[:, 6]) >= 0).all()
+        for b in range(n_blocks):
+            s = int(np.flatnonzero(f[:, 6] <= b)[-1])
+            vp, cp, lp, rows, width, slot0, block0 = f[s].tolist()
+            val, col, ln = (self.tensors[p] for p in (vp, cp, lp))
+            r = (b - block0) * k14.BLOCK_THREADS \
+                + torch.arange(k14.BLOCK_THREADS)
+            live = r < rows
+            rc = r.clamp(max=rows - 1)
+            n = torch.where(live, ln[rc].long().clamp(max=width), 0)
+            acc = torch.zeros(k14.BLOCK_THREADS, dtype=out.dtype)
+            for w in range(int(n.max())):
+                prod = val[w, rc] * x[col[w, rc].long()]
+                acc = torch.where(w < n, acc + prod, acc)
+            out[slot0 + r[live]] = acc[live]
+
+    def rows(self, slot, pos, m, split_rows, split_slots, split_run,
+             split_cols, y):
+        rows = k14.BLOCK_THREADS
+        for b, r0 in enumerate(range(0, m, rows)):
+            split_of = [-1] * rows
+            if torch.is_tensor(split_run):
+                lo, hi = int(split_run[b]), int(split_run[b + 1])
+                for k in range(lo, hi):
+                    split_of[int(split_rows[k]) - r0] = k
+            for t in range(min(rows, m - r0)):
+                v = slot[int(pos[r0 + t])]
+                if split_of[t] >= 0:
+                    for c in range(split_cols):
+                        s = int(split_slots[split_of[t], c])
+                        if s < 0:
+                            break
+                        v = v + slot[s]
+                y[r0 + t] = v
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", [
+    ("hubs", dict(split_width=128)), ("hubs", dict(split_width=None)),
+    ("rmat", dict(min_width=2, max_slabs=10)), ("stencil", dict(sigma=0)),
+    ("random", dict(sigma=None, split_width=8)),
+    ("wide", dict(min_width=2, split_width=None)),
+    ("wide", dict(min_width=2, split_width=1024))],
+    ids=["hubs-split128", "hubs-unsplit", "rmat", "stencil", "random-split8",
+         "wide-unsplit", "wide-split1024"])
+def test_ell_kernel_contract_equals_the_plain_version(case, dtype,
+                                                      monkeypatch):
+    """The slab table and both launches, run on the stand-in in the
+    kernel's blocks, threads and order of adds, give the plain version's
+    y bit for bit; the wrapper makes exactly the two launches, in spans
+    ``spmv.slabs`` and ``spmv.rows``, and counts the call and its slots."""
+    name, kw = case
+    a = _with_dtype(_wide_matrix() if name == "wide" else MATRICES[name](),
+                    dtype)
+    e = nt.ELL.from_csr(a, **kw)
+    x = torch.from_numpy(_x(a.shape[1], dtype))
+    card = _K14Card(e)
+    monkeypatch.setattr(cuda_lib, "validate",
+                        lambda what, *args: (0, None, list(args)))
+    monkeypatch.setattr(cuda_lib, "launch", card.launch)
+    monkeypatch.setattr(k14.spmv_ell, "launches", 0)
+    t = k14.slab_table(e)
+    assert t.n_slots == sum(v.shape[1] for v in e.vals)
+    assert t.slots == e.padded_nnz
+    profiling.reset()
+    with profiling.recording():
+        got = k14._launch(e, x, t)
+    snap = profiling.snapshot()
+    profiling.reset()
+    assert card.calls == ["nsp_spmv_ell_slabs", "nsp_spmv_ell_rows"]
+    assert k14.spmv_ell.launches == 2
+    assert snap["counters"] == {"spmv.ell.k14": 1,
+                                "spmv.ell.k14.slots": e.padded_nnz}
+    assert {"spmv.slabs", "spmv.rows"} <= set(snap["spans"])
+    want = k14.spmv_ell_plain(e, x)
+    assert torch.equal(_bits(got), _bits(want))
+    ok, nf = nt.ans_check(got, nt.spmv_oracle(a, x.numpy()),
+                          scale=nt.spmv_abs_oracle(a, x.numpy()))
+    assert ok, nf
+
+
+def test_ell_slab_table_takes_the_widest_slabs_first(monkeypatch):
+    """The table lists the slabs widest first, each with its first slot
+    in the ELL's own order and its first block, a block of 256 rows at
+    every width."""
+    monkeypatch.setattr(cuda_lib, "validate",
+                        lambda what, *args: (0, None, list(args)))
+    e = nt.ELL.from_csr(nt.rmat_csr(8, edge_factor=16, seed=3),
+                        min_width=2, max_slabs=10)
+    assert e.widths == (2, 4, 8, 16, 32, 64, 128, 256)
+    t = k14.slab_table(e)
+    f = np.array(t.table[:], np.int64).reshape(-1, k14.FIELDS)
+    rows = [v.shape[1] for v in e.vals]
+    order = np.argsort([-w for w in e.widths], kind="stable")
+    np.testing.assert_array_equal(f[:, 4], np.asarray(e.widths)[order])
+    np.testing.assert_array_equal(f[:, 3], np.asarray(rows)[order])
+    np.testing.assert_array_equal(
+        f[:, 5], np.concatenate([[0], np.cumsum(rows)[:-1]])[order])
+    blocks = -(-f[:, 3] // 256)
+    np.testing.assert_array_equal(f[:, 6], np.cumsum(blocks) - blocks)
+    assert (t.n_slabs, t.n_blocks, t.n_slots) == (8, blocks.sum(), sum(rows))
+    assert t.split_run is None
+    wide = k14.slab_table(nt.ELL.from_csr(_wide_matrix(), min_width=2,
+                                          split_width=None))
+    f = np.array(wide.table[:], np.int64).reshape(-1, k14.FIELDS)
+    np.testing.assert_array_equal(f[:3, 4], [4096, 2048, 64])
+    np.testing.assert_array_equal(f[:3, 6], [0, 1, 2])
+    # the second launch's blocks of 256 rows: each one's first split row
+    e = nt.ELL.from_csr(_wide_matrix(), min_width=2, split_width=64)
+    run = k14.slab_table(e).split_run
+    want = np.searchsorted(e.split_rows.numpy(), np.arange(0, 3257, 256))
+    np.testing.assert_array_equal(run.numpy(), want)
+    assert run.dtype == torch.int32
 
 
 # ---------------------------------------------------------------------------
